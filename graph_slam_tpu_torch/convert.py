@@ -1,0 +1,100 @@
+"""Carry state between the JAX package and the port, as numpy arrays.
+
+The JAX package's pytrees go in as any object with the same field names
+whose leaves are array-likes (``jax.tree.map(np.asarray, graph)`` for
+example), so this module needs no jax. Integer fields become int64 (torch's
+index type), bool fields bool, floating fields the requested ``dtype``.
+``to_numpy`` goes the other way for tensors, NamedTuples and sequences.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .core import se3
+from .graph.factors import (BetweenPoseTable, FactorGraph, ImuTable,
+                            PlaneTable, PriorPointTable, PriorPoseTable,
+                            PriorVec3Table, PriorVec6Table, ProjectionTable)
+from .graph.variables import VariableArena
+
+__all__ = ["tensor", "graph_from_numpy", "arena_from_numpy",
+           "PropagationInputs", "propagation_inputs", "to_numpy"]
+
+_TABLE_BY_FIELD = dict(zip(FactorGraph._fields, (
+    PriorPoseTable, BetweenPoseTable, PriorVec3Table, PriorVec6Table,
+    PlaneTable, ImuTable, ProjectionTable, PriorPointTable)))
+
+
+def tensor(x, *, device="cpu", dtype=torch.float64):
+    """One array-like -> tensor on ``device``: ints int64, bools bool,
+    floats ``dtype``."""
+    a = np.array(x)
+    if a.dtype == np.bool_:
+        dt = torch.bool
+    elif np.issubdtype(a.dtype, np.integer):
+        dt = torch.int64
+    else:
+        dt = dtype
+    return torch.as_tensor(a, device=device).to(dt)
+
+
+def _convert(typ, obj, device, dtype):
+    return typ(**{f: tensor(getattr(obj, f), device=device, dtype=dtype)
+                  for f in typ._fields})
+
+
+def graph_from_numpy(graph, *, device="cpu", dtype=torch.float64) -> FactorGraph:
+    """A JAX ``FactorGraph`` (numpy leaves) -> the port's ``FactorGraph``."""
+    return FactorGraph(**{
+        name: _convert(typ, getattr(graph, name), device, dtype)
+        for name, typ in _TABLE_BY_FIELD.items()})
+
+
+def arena_from_numpy(values, *, device="cpu", dtype=torch.float64) -> VariableArena:
+    """A JAX ``VariableArena`` (numpy leaves) -> the port's arena."""
+    return _convert(VariableArena, values, device, dtype)
+
+
+class PropagationInputs(NamedTuple):
+    """Per-plane propagation inputs of ``propagate_planes``."""
+
+    planes_i: torch.Tensor    # (P, 4)
+    S_ni: torch.Tensor        # (P, 3, 3)
+    S_di: torch.Tensor        # (P,)
+    prev_masks: torch.Tensor  # (P, H, W) bool
+    prev_counts: torch.Tensor  # (P,)
+    T_ij: se3.Pose            # (3, 3), (3,)
+    S_tij: torch.Tensor       # (3, 3)
+    intensity: torch.Tensor   # (H, W)
+    depth: torch.Tensor       # (H, W)
+
+
+def propagation_inputs(planes_i, S_ni, S_di, prev_masks, prev_counts, T_R,
+                       T_t, S_tij, intensity, depth, *, device="cpu",
+                       dtype=torch.float64) -> PropagationInputs:
+    """numpy propagation inputs -> tensors; ``intensity`` and ``depth``
+    take ``dtype`` too (the propagation computes in ``depth.dtype``)."""
+    def t(x):
+        return tensor(x, device=device, dtype=dtype)
+
+    return PropagationInputs(
+        t(planes_i), t(S_ni), t(S_di), t(np.asarray(prev_masks, bool)),
+        t(prev_counts), se3.Pose(t(T_R), t(T_t)), t(S_tij),
+        t(np.asarray(intensity, np.float64)), t(np.asarray(depth, np.float64)))
+
+
+def to_numpy(x):
+    """Tensors -> numpy arrays, recursively through NamedTuples, tuples,
+    lists and dicts; other leaves unchanged."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_numpy(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_numpy(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_numpy(v) for k, v in x.items()}
+    return x

@@ -1,0 +1,150 @@
+"""SE(3) Lie-group operations on torch tensors (port of ``core/se3.py``).
+
+Tangent ordering is GTSAM's: ``xi = (omega, v)``, rotation first. Poses are
+stored struct-of-arrays as ``Pose(R, t)`` with ``R: (..., 3, 3)`` and
+``t: (..., 3)``; every function broadcasts over the leading batch axes.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import so3
+
+__all__ = ["Pose", "identity", "compose", "inverse", "expmap", "logmap",
+           "adjoint", "transform_from", "transform_to", "between", "retract",
+           "local", "left_jacobian_inverse", "right_jacobian_inverse"]
+
+
+class Pose(NamedTuple):
+    """SE(3) element(s): rotation matrix block and translation block."""
+
+    R: torch.Tensor  # (..., 3, 3)
+    t: torch.Tensor  # (..., 3)
+
+    def __matmul__(self, other: "Pose") -> "Pose":
+        return compose(self, other)
+
+    def inv(self) -> "Pose":
+        return inverse(self)
+
+    @property
+    def batch_shape(self):
+        return self.t.shape[:-1]
+
+
+def identity(batch_shape=(), *, dtype=torch.float64, device="cpu") -> Pose:
+    R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
+    return Pose(R.clone(), torch.zeros(*batch_shape, 3, dtype=dtype,
+                                       device=device))
+
+
+def _mv(A, x):
+    """Batched matrix-vector product ``A @ x``."""
+    return (A @ x[..., None])[..., 0]
+
+
+def compose(a: Pose, b: Pose) -> Pose:
+    return Pose(a.R @ b.R, _mv(a.R, b.t) + a.t)
+
+
+def inverse(p: Pose) -> Pose:
+    Rt = p.R.transpose(-1, -2)
+    return Pose(Rt, -_mv(Rt, p.t))
+
+
+def between(a: Pose, b: Pose) -> Pose:
+    """GTSAM ``a.between(b) = a^-1 * b``."""
+    return compose(inverse(a), b)
+
+
+def transform_from(p: Pose, pt):
+    """Body -> world point transform (GTSAM ``transform_from``)."""
+    return _mv(p.R, pt) + p.t
+
+
+def transform_to(p: Pose, pt):
+    """World -> body point transform (GTSAM ``transform_to``)."""
+    return _mv(p.R.transpose(-1, -2), pt - p.t)
+
+
+def expmap(xi) -> Pose:
+    """SE(3) exponential: ``xi = (omega, v)`` -> Pose (Pose3::Expmap)."""
+    w = xi[..., :3]
+    v = xi[..., 3:]
+    return Pose(so3.expmap(w), _mv(so3.left_jacobian(w), v))
+
+
+def logmap(p: Pose):
+    """SE(3) logarithm: Pose -> ``(omega, v)`` (Pose3::Logmap)."""
+    w = so3.logmap(p.R)
+    v = _mv(so3.left_jacobian_inverse(w), p.t)
+    return torch.cat([w, v], dim=-1)
+
+
+def retract(p: Pose, xi) -> Pose:
+    """Manifold retraction ``p * Expmap(xi)``."""
+    return compose(p, expmap(xi))
+
+
+def local(p: Pose, q: Pose):
+    """Chart inverse: ``Logmap(p^-1 q)``."""
+    return logmap(between(p, q))
+
+
+def _q_left(xi):
+    """Barfoot's Q matrix of the SE(3) left Jacobian (eq. 7.86)."""
+    w = xi[..., :3]
+    v = xi[..., 3:]
+    W = so3.hat(w)
+    V = so3.hat(v)
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 <= 1e-12
+    one = torch.ones_like(theta2)
+    theta = torch.sqrt(torch.where(small, one, theta2))
+    s, c = torch.sin(theta), torch.cos(theta)
+    t3 = theta2 * theta
+    t4 = theta2 * theta2
+    t5 = t4 * theta
+    c1 = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                     (theta - s) / torch.where(small, one, t3))
+    c2 = torch.where(small, 1.0 / 24.0 - theta2 / 720.0,
+                     (theta2 + 2.0 * c - 2.0) / torch.where(small, one, 2.0 * t4))
+    c3 = torch.where(small, torch.full_like(theta2, 1.0 / 120.0),
+                     (2.0 * theta - 3.0 * s + theta * c)
+                     / torch.where(small, one, 2.0 * t5))
+    WV = W @ V
+    VW = V @ W
+    WVW = WV @ W
+    W2 = W @ W
+    c1 = c1[..., None, None]
+    c2 = c2[..., None, None]
+    c3 = c3[..., None, None]
+    return (0.5 * V + c1 * (WV + VW + W @ VW)
+            + c2 * (W2 @ V + V @ W2 - 3.0 * WVW)
+            + c3 * (WVW @ W + W @ WVW))
+
+
+def left_jacobian_inverse(xi):
+    """Inverse SE(3) left Jacobian (6x6), tangent ordering (omega, v)."""
+    Jli = so3.left_jacobian_inverse(xi[..., :3])
+    Q = _q_left(xi)
+    top = torch.cat([Jli, torch.zeros_like(Jli)], dim=-1)
+    bot = torch.cat([-Jli @ Q @ Jli, Jli], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def right_jacobian_inverse(xi):
+    """Inverse SE(3) right Jacobian: Jr^-1(xi) = Jl^-1(-xi)."""
+    return left_jacobian_inverse(-xi)
+
+
+def adjoint(p: Pose):
+    """GTSAM ``Pose3::AdjointMap``: ``[[R, 0], [hat(t) R, R]]``."""
+    Z = torch.zeros_like(p.R)
+    tR = so3.hat(p.t) @ p.R
+    top = torch.cat([p.R, Z], dim=-1)
+    bot = torch.cat([tR, p.R], dim=-1)
+    return torch.cat([top, bot], dim=-2)

@@ -1,0 +1,5 @@
+"""Synthetic data of the port (``graph_slam_tpu/datasets`` counterpart)."""
+
+from .synthetic import make_sphere_graph, sphere_ground_truth
+
+__all__ = ["make_sphere_graph", "sphere_ground_truth"]

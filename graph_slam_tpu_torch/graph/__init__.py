@@ -1,0 +1,20 @@
+"""Factor graph, arenas and optimizers of the port (``graph_slam_tpu/graph``
+counterpart): prior/between tables, dense and PCG LM/GN."""
+
+from .builder import GraphBuilder, round_up
+from .factors import (BetweenPoseTable, FactorGraph, PriorPoseTable,
+                      linearize_blocks, total_error)
+from .lm import LMParams, LMResult, gn_optimize, lm_optimize
+from .solve import inv33, solve_dense, solve_pcg, solve_pcg_precond
+from .variables import (TangentLayout, VariableArena, empty_arena, layout_of,
+                        retract_all, used_slot_mask)
+
+__all__ = [
+    "GraphBuilder", "round_up",
+    "FactorGraph", "PriorPoseTable", "BetweenPoseTable", "total_error",
+    "linearize_blocks",
+    "LMParams", "LMResult", "lm_optimize", "gn_optimize",
+    "solve_dense", "solve_pcg", "solve_pcg_precond", "inv33",
+    "VariableArena", "TangentLayout", "layout_of", "used_slot_mask",
+    "retract_all", "empty_arena",
+]
