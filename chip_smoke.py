@@ -8,7 +8,11 @@ Phases, one JSON line each:
 1. build   — compile ``graph_slam_tpu_torch/csrc/region_grow.cu`` with nvcc;
 2. kernel  — the CUDA region grow against its plain torch version on the
              card, bit-equal, at the SR4000 and RealSense frame shapes and
-             the main path's own shapes, with both times per call;
+             the main path's own shapes, with both times per call, the
+             bound and the cluster size chosen; with every gate closed; and
+             over every cluster size on planes whose rows it does not
+             divide, widths off the 16-byte path, no plane and more planes
+             than the card holds clusters, 0 to 200 steps;
 3. golden  — ``run_pose_graph`` on ``tests/goldens/posegraph_vro.log`` in
              float64 against the pinned chi2 and trajectory;
 4. sphere  — a sphere2500-class VRO log (~10,000 records, 1% of the loop
@@ -20,9 +24,11 @@ Phases, one JSON line each:
              and 10 RealSense frames through ``propagate_plane``, every call
              launching the region-grow kernel.
 
-Phases 3-6 are the main path: the kernel's launch counter is set to 0 just
-before them and read just after. Then it prints the kernel summary line and,
-last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
+Phases 3-6 are the main path, driven on the port's default device (the
+card): the kernel's launch counter is set to 0 just before them and read
+just after. Then the kernel is timed on the fill inputs of real frames
+(phase ``frames``), and the script prints the kernel summary line and, last,
+``{"ok": true, "device": {...}}``. Any failed check raises, so the
 exit code is non-zero and no result line is printed. It needs one CUDA card
 and the repository beside it; it imports no JAX.
 """
@@ -37,6 +43,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens")
 SPHERE_HEADLINE_DROP_REF = 256.5   # BENCH_r05.json, same graph (accuracy)
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+# the shapes timed: SR4000 and RealSense frames at P = 8, then the main
+# path's own (propagate_planes at P = 2, propagate_plane at P = 1)
+GROW_SHAPES = [(8, 144, 176), (8, 480, 640), (2, 144, 176), (1, 480, 640)]
+MAIN_PATH_SHAPE = (1, 480, 640)
 
 
 def _require(cond, msg):
@@ -64,6 +75,24 @@ def _cuda_time_us(fn, reps):
     return start.elapsed_time(stop) * 1e3 / reps
 
 
+def _cuda_graph_time_us(fn, reps):
+    """Mean microseconds per call with ``reps`` calls captured once into a
+    CUDA graph and replayed, so no host work sits between the launches: the
+    card's own time for a call, launch gap included."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return _cuda_time_us(graph.replay, 3) / reps
+
+
 def _grow_inputs(P, h, w, seed):
     """Random flood-fill inputs above the percolation threshold, so the
     fill keeps spreading for all 64 steps."""
@@ -80,42 +109,133 @@ def _grow_inputs(P, h, w, seed):
     return [torch.as_tensor(a, device="cuda") for a in (seeds, member, *gates)]
 
 
+def _grow_module():
+    import graph_slam_tpu_torch.planes.region_grow  # noqa: F401
+
+    return sys.modules["graph_slam_tpu_torch.planes.region_grow"]
+
+
+def grow_bound_us(P, h, w):
+    """The least time the card could take: seed and member read once, the
+    output written once (P*h*w bytes each), four gates read once (h*w bytes
+    each), over the memory rate. Bytes bound it; the bit operations are far
+    below any operation bound."""
+    return (3 * P * h * w + 4 * h * w) / HBM_BYTES_PER_S * 1e6
+
+
+def grow_steps_run(args, steps):
+    """Steps the kernel runs on these inputs: up to and including the first
+    step that changes nothing, at most ``steps``."""
+    import torch
+
+    from graph_slam_tpu_torch.planes.region_grow import region_grow_torch
+
+    seed, member, *gates = [a != 0 for a in args]
+    mask = seed & member
+    for step in range(steps):
+        grown = region_grow_torch(mask, member, *gates, steps=1)
+        if torch.equal(grown, mask):
+            return step + 1
+        mask = grown
+    return steps
+
+
+def grow_row(args, steps, plain_reps=5, reps=200):
+    """Hold the kernel bit-equal to the plain version on ``args`` and time
+    both; one row of the ``kernel`` line. ``us`` is what a caller pays a
+    call (CUDA events around ``reps`` wrapper calls in a row, paced by the
+    wrapper's host work where that is slower than the card), ``device_us``
+    the card's own time (the launches replayed from a CUDA graph), which is
+    the kernel's ``ms`` on the ``kernels`` line, ``us`` its ``call_ms``."""
+    import torch
+
+    from graph_slam_tpu_torch.planes.region_grow import (region_grow,
+                                                         region_grow_torch)
+
+    grow = _grow_module()
+    P, h, w = args[0].shape
+    out = region_grow(*args, steps=steps)
+    ref = region_grow_torch(*args, steps=steps)
+    torch.cuda.synchronize()
+    err = int((out != ref).sum())
+    _require(err == 0, f"kernel != plain version at {(P, h, w)}: "
+                       f"{err} pixels differ")
+    C = grow.cluster_size(h, w)
+    K = grow.sub_steps(h, w, C)
+    return {"shape": [P, h, w], "cluster": C, "steps_between_exchanges": K,
+            "threads": grow.block_threads(h, w, C, K),
+            "smem_bytes": grow.smem_bytes(h, w, C, K),
+            "us": _cuda_time_us(lambda: region_grow(*args, steps=steps), reps),
+            "device_us": _cuda_graph_time_us(
+                lambda: region_grow(*args, steps=steps), 50),
+            "plain_us": _cuda_time_us(
+                lambda: region_grow_torch(*args, steps=steps), plain_reps),
+            "bound_us": grow_bound_us(P, h, w), "bound_by": "bytes",
+            "steps_run": grow_steps_run(args, steps),
+            "grown_px": int(out.sum()), "mismatches": err}
+
+
+def _band_cases():
+    """Every cluster size on shapes that exercise the bands: rows the
+    cluster does not divide, fewer rows than blocks, widths off the 16-byte
+    path, no plane, more planes than the card holds clusters at once."""
+    import torch
+
+    from graph_slam_tpu_torch.planes.region_grow import (region_grow,
+                                                         region_grow_torch)
+
+    grow = _grow_module()
+    cases = 0
+    for k, (P, h, w) in enumerate([(2, 13, 176), (2, 5, 20), (2, 3, 33),
+                                   (2, 21, 97), (3, 61, 97), (2, 7, 1),
+                                   (0, 16, 16), (300, 144, 176)]):
+        args = _grow_inputs(max(P, 1), h, w, seed=40 + k)
+        args[:2] = [a[:P] for a in args[:2]]
+        for steps in (0, 1, 64, 200):
+            ref = region_grow_torch(*args, steps=steps)
+            outs = [region_grow(*args, steps=steps)] + [
+                grow._launch(args[0], args[1], args[2:], steps, cluster=C)
+                for C in grow.CLUSTER_SIZES]
+            torch.cuda.synchronize()
+            for out in outs:
+                _require(out.shape == ref.shape and bool(torch.equal(out, ref)),
+                         f"kernel != plain version at {(P, h, w)}, "
+                         f"{steps} steps")
+                cases += 1
+    return cases
+
+
 def phase_kernel():
     import torch
 
     from graph_slam_tpu_torch.planes.region_grow import (region_grow,
                                                          region_grow_torch)
 
-    rows, max_err = [], 0
-    for k, (P, h, w) in enumerate([(8, 144, 176), (8, 480, 640),
-                                   (2, 144, 176), (1, 480, 640)]):
-        args = _grow_inputs(P, h, w, seed=10 + k)
-        out = region_grow(*args, steps=64)
-        ref = region_grow_torch(*args, steps=64)
-        torch.cuda.synchronize()
-        err = int((out != ref).sum())
-        max_err = max(max_err, err)
-        _require(err == 0, f"kernel != plain version at {(P, h, w)}: "
-                           f"{err} pixels differ")
-        us = _cuda_time_us(lambda: region_grow(*args, steps=64), 200)
-        plain_us = _cuda_time_us(lambda: region_grow_torch(*args, steps=64), 5)
-        rows.append({"shape": [P, h, w], "us": us, "plain_us": plain_us,
-                     "grown_px": int(out.sum())})
+    rows = [grow_row(_grow_inputs(P, h, w, seed=10 + k), 64)
+            for k, (P, h, w) in enumerate(GROW_SHAPES)]
+
+    # every gate closed: one step that changes nothing, then the exit; what
+    # is left is the launch, bytes to bits and back
+    args = _grow_inputs(8, 480, 640, seed=11)
+    closed_args = args[:2] + [torch.zeros_like(g) for g in args[2:]]
+    closed = grow_row(closed_args, 64)
+    _require(closed["steps_run"] == 1, "closed gates ran more than one step")
 
     # no wraparound: with every gate closed nothing leaves the seed column
     h, w = 24, 40
     seed = torch.zeros(h, w, dtype=torch.bool, device="cuda")
     seed[:, 0] = True
     member = torch.ones(h, w, dtype=torch.bool, device="cuda")
-    closed = [torch.zeros(h, w, dtype=torch.bool, device="cuda")] * 4
-    out = region_grow(seed, member, *closed, steps=8)
-    ref = region_grow_torch(seed, member, *closed, steps=8)
+    shut = [torch.zeros(h, w, dtype=torch.bool, device="cuda")] * 4
+    out = region_grow(seed, member, *shut, steps=8)
+    ref = region_grow_torch(seed, member, *shut, steps=8)
     torch.cuda.synchronize()
     _require(bool(torch.equal(out, ref)) and not bool(out[:, 1:].any()),
              "no-wraparound case")
-    _emit({"phase": "kernel", "steps": 64, "max_abs_err": max_err,
-           "shapes": rows, "no_wraparound": True})
-    return max_err, rows[1]
+    _emit({"phase": "kernel", "steps": 64, "max_abs_err": 0,
+           "shapes": rows, "closed_gates": closed, "no_wraparound": True,
+           "band_cases_bit_equal": _band_cases()})
+    return {tuple(r["shape"]): r for r in rows}
 
 
 def phase_golden():
@@ -127,7 +247,7 @@ def phase_golden():
     pins = json.load(open(os.path.join(GOLDEN, "chi2.json")))
     res = run_pose_graph(read_vro_log(os.path.join(GOLDEN,
                                                    "posegraph_vro.log")),
-                         bucket=64, device="cuda")
+                         bucket=64)
     rel0 = abs(res.error0 - pins["vro_error0"]) / pins["vro_error0"]
     rel = abs(res.error - pins["vro_error"]) / pins["vro_error"]
     golden = np.loadtxt(os.path.join(GOLDEN, "posegraph_traj.log"))
@@ -195,7 +315,7 @@ def phase_sphere():
         log = read_vro_log(path)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = run_pose_graph(log, bucket=256, device="cuda")
+    res = run_pose_graph(log, bucket=256)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = len(res.seq_ids)
@@ -218,8 +338,7 @@ def phase_pcg():
     from graph_slam_tpu_torch.graph import gn_optimize, total_error
 
     graph, values, _ = make_sphere_graph(2500, 4.0, seed=0,
-                                         dtype=torch.float32, bucket=256,
-                                         device="cuda")
+                                         dtype=torch.float32, bucket=256)
     e0 = float(total_error(graph, values))
     gn_optimize(graph, values, iterations=2, solver="pcg", damping=1e-3,
                 pcg_iters=10)                                  # warm-up
@@ -361,6 +480,39 @@ def phase_planes():
                                    f"for {expected} propagation calls")
 
 
+def real_frame_grow_inputs(n_frames=4):
+    """The fill's inputs on real frames: the arguments of the last
+    ``region_grow`` call of a short propagation run of each camera."""
+    import torch
+
+    from graph_slam_tpu_torch.config import RS435, SR4000
+    from graph_slam_tpu_torch.planes import propagation
+
+    calls = {}
+    real = propagation.region_grow
+
+    def recorder(*args, steps=64):
+        calls[tuple(args[0].shape)] = (list(args), steps)
+        return real(*args, steps=steps)
+
+    propagation.region_grow = recorder
+    try:
+        _plane_run(SR4000, n_frames, True, torch.float32)
+        _plane_run(RS435, n_frames, False, torch.float32)
+    finally:
+        propagation.region_grow = real
+    return calls
+
+
+def phase_frames():
+    """The kernel on the seed, member and gates of rendered frames, where
+    the warped seed covers most of each plane and the fill exits early."""
+    rows = [grow_row(args, steps)
+            for _, (args, steps) in sorted(real_frame_grow_inputs().items())]
+    _emit({"phase": "frames", "shapes": rows})
+    _require(len(rows) == 2, "expected one fill shape per camera")
+
+
 def main():
     import torch
 
@@ -385,7 +537,7 @@ def main():
            "built_now": built, "seconds": time.perf_counter() - t0,
            "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    max_err, timing = phase_kernel()
+    timing = phase_kernel()[MAIN_PATH_SHAPE]
 
     # the main path: every launch from here to the end is counted
     region_grow.launches = 0
@@ -395,13 +547,18 @@ def main():
     phase_planes()
     launches = region_grow.launches
     _require(launches > 0, "the main path never launched region_grow")
+    phase_frames()
 
     _emit({"kernels": [{
         "name": "region_grow", "route": "cuda",
         "source": "graph_slam_tpu_torch/csrc/region_grow.cu",
         "replaces": "graph_slam_tpu/planes/pallas_grow.py:78",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": timing["us"] / 1e3, "plain_ms": timing["plain_us"] / 1e3}]})
+        "launches": launches, "max_abs_err": timing["mismatches"],
+        "shape": timing["shape"], "ms": timing["device_us"] / 1e3,
+        "call_ms": timing["us"] / 1e3,
+        "plain_ms": timing["plain_us"] / 1e3,
+        "bound_ms": timing["bound_us"] / 1e3, "bound_by": timing["bound_by"],
+        "library_ms": None}]})
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

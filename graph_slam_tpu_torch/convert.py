@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .core import se3
+from .device import resolve
 from .graph.factors import (BetweenPoseTable, FactorGraph, ImuTable,
                             PlaneTable, PriorPointTable, PriorPoseTable,
                             PriorVec3Table, PriorVec6Table, ProjectionTable)
@@ -28,7 +29,7 @@ _TABLE_BY_FIELD = dict(zip(FactorGraph._fields, (
     PlaneTable, ImuTable, ProjectionTable, PriorPointTable)))
 
 
-def tensor(x, *, device="cpu", dtype=torch.float64):
+def tensor(x, *, device=None, dtype=torch.float64):
     """One array-like -> tensor on ``device``: ints int64, bools bool,
     floats ``dtype``."""
     a = np.array(x)
@@ -38,7 +39,7 @@ def tensor(x, *, device="cpu", dtype=torch.float64):
         dt = torch.int64
     else:
         dt = dtype
-    return torch.as_tensor(a, device=device).to(dt)
+    return torch.as_tensor(a, device=resolve(device)).to(dt)
 
 
 def _convert(typ, obj, device, dtype):
@@ -46,15 +47,19 @@ def _convert(typ, obj, device, dtype):
                   for f in typ._fields})
 
 
-def graph_from_numpy(graph, *, device="cpu", dtype=torch.float64) -> FactorGraph:
+def graph_from_numpy(graph, *, device=None,
+                     dtype=torch.float64) -> FactorGraph:
     """A JAX ``FactorGraph`` (numpy leaves) -> the port's ``FactorGraph``."""
+    device = resolve(device)
     return FactorGraph(**{
         name: _convert(typ, getattr(graph, name), device, dtype)
         for name, typ in _TABLE_BY_FIELD.items()})
 
 
-def arena_from_numpy(values, *, device="cpu", dtype=torch.float64) -> VariableArena:
+def arena_from_numpy(values, *, device=None,
+                     dtype=torch.float64) -> VariableArena:
     """A JAX ``VariableArena`` (numpy leaves) -> the port's arena."""
+    device = resolve(device)
     return _convert(VariableArena, values, device, dtype)
 
 
@@ -73,10 +78,12 @@ class PropagationInputs(NamedTuple):
 
 
 def propagation_inputs(planes_i, S_ni, S_di, prev_masks, prev_counts, T_R,
-                       T_t, S_tij, intensity, depth, *, device="cpu",
+                       T_t, S_tij, intensity, depth, *, device=None,
                        dtype=torch.float64) -> PropagationInputs:
     """numpy propagation inputs -> tensors; ``intensity`` and ``depth``
     take ``dtype`` too (the propagation computes in ``depth.dtype``)."""
+    device = resolve(device)
+
     def t(x):
         return tensor(x, device=device, dtype=dtype)
 

@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from . import so3
+from ..device import resolve
 
 __all__ = ["Pose", "identity", "compose", "inverse", "expmap", "logmap",
            "adjoint", "transform_from", "transform_to", "between", "retract",
@@ -35,7 +36,8 @@ class Pose(NamedTuple):
         return self.t.shape[:-1]
 
 
-def identity(batch_shape=(), *, dtype=torch.float64, device="cpu") -> Pose:
+def identity(batch_shape=(), *, dtype=torch.float64, device=None) -> Pose:
+    device = resolve(device)
     R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
     return Pose(R.clone(), torch.zeros(*batch_shape, 3, dtype=dtype,
                                        device=device))

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..graph import GraphBuilder
 
 __all__ = ["make_sphere_graph", "sphere_ground_truth"]
@@ -54,9 +55,11 @@ def sphere_ground_truth(n_poses: int, radius: float = 10.0, turns: int = 25):
 
 def make_sphere_graph(n_poses: int = 2500, edges_per_pose: float = 4.0,
                       meas_noise: float = 0.02, init_noise: float = 0.1,
-                      seed: int = 0, *, dtype=torch.float32, device="cpu",
+                      seed: int = 0, *, dtype=torch.float32, device=None,
                       bucket: int = 256):
-    """Build (graph, values, gt) for the sphere stress benchmark."""
+    """Build (graph, values, gt) for the sphere stress benchmark, on the
+    CUDA card unless ``device`` names another."""
+    device = resolve(device)
     r = np.random.default_rng(seed)
     Rs, ts = sphere_ground_truth(n_poses)
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve
 from .factors import (BetweenPoseTable, FactorGraph, ImuTable, PlaneTable,
                       PriorPointTable, PriorPoseTable, PriorVec3Table,
                       PriorVec6Table, ProjectionTable, empty_table)
@@ -90,13 +91,15 @@ class GraphBuilder:
                                   robust=robust))
 
     # -- freeze ----------------------------------------------------------
-    def build(self, bucket: int = 64, *, device="cpu", dtype=torch.float64):
-        """Freeze to ``(FactorGraph, VariableArena)`` on ``device``/``dtype``.
+    def build(self, bucket: int = 64, *, device=None, dtype=torch.float64):
+        """Freeze to ``(FactorGraph, VariableArena)`` on ``device``/``dtype``
+        (``device=None``: the CUDA card).
 
         Index, kind and count fields are int64 (torch's index type), masks
         are bool, everything else ``dtype``; numpy builds the padded arrays
         in float64 and each is cast once on upload.
         """
+        device = resolve(device)
 
         def up(x, dt=dtype):
             return torch.as_tensor(np.asarray(x), device=device).to(dt)

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import se3
+from ..device import resolve
 from ..noise.models import ROBUST_HUBER, huber_weight
 from .variables import VariableArena, layout_of
 
@@ -292,8 +293,9 @@ _FLOAT_SHAPES = {
 }
 
 
-def empty_table(table_type, *, dtype=torch.float64, device="cpu"):
+def empty_table(table_type, *, dtype=torch.float64, device=None):
     """A capacity-0 table of one of the six types not ported yet."""
+    device = resolve(device)
     shapes = _FLOAT_SHAPES[table_type]
     fields = {}
     for name in table_type._fields:

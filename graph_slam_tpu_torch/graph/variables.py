@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import se3
+from ..device import resolve
 from ..planes import oriented_plane
 
 __all__ = ["VariableArena", "TangentLayout", "layout_of", "used_slot_mask",
@@ -134,7 +135,9 @@ def retract_all(values: VariableArena, delta) -> VariableArena:
 
 def empty_arena(pose_cap: int, vel_cap: int = 0, bias_cap: int = 0,
                 plane_cap: int = 0, point_cap: int = 0, *,
-                dtype=torch.float64, device="cpu") -> VariableArena:
+                dtype=torch.float64, device=None) -> VariableArena:
+    device = resolve(device)
+
     def z(*shape):
         return torch.zeros(*shape, dtype=dtype, device=device)
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve
+
 __all__ = [
     "sqrt_info_from_sigmas",
     "sqrt_info_from_information",
@@ -31,9 +33,9 @@ def sqrt_info_from_sigmas(sigmas):
 
 
 def isotropic_sqrt_info(dim: int, sigma, *, dtype=torch.float64,
-                        device="cpu"):
+                        device=None):
     """Isotropic::Sigma — S = I/sigma."""
-    return torch.eye(dim, dtype=dtype, device=device) / sigma
+    return torch.eye(dim, dtype=dtype, device=resolve(device)) / sigma
 
 
 def sqrt_info_from_information(info):

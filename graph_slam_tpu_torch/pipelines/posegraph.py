@@ -24,6 +24,7 @@ import torch
 
 from ..config import SlamParams
 from ..core import se3, so3
+from ..device import resolve
 from ..graph import GraphBuilder, LMParams, gn_optimize, lm_optimize, total_error
 from ..io.vro_log import FAILED_INFO_SENTINEL, VROLog
 
@@ -47,13 +48,15 @@ def _not_ported(what: str, item: str):
 
 def build_pose_graph(log: VROLog, params: SlamParams = SlamParams(),
                      bucket: int = 256, backend: str = "gtsam", *,
-                     device="cpu", dtype=torch.float64):
-    """VRO log -> (FactorGraph, VariableArena, seq_ids) on ``device``.
+                     device=None, dtype=torch.float64):
+    """VRO log -> (FactorGraph, VariableArena, seq_ids) on ``device``
+    (``None``: the CUDA card).
 
     Nodes are created in file order; edges between existing nodes are loop
     closures. Edge transforms and initial estimates are computed on the
     host in float64.
     """
+    device = resolve(device)
     if backend == "g2o":
         raise _not_ported("backend='g2o'", "A (lm_optimize_g2o)")
     if backend != "gtsam":
@@ -105,7 +108,7 @@ def build_pose_graph(log: VROLog, params: SlamParams = SlamParams(),
 def run_pose_graph(log: VROLog, params: SlamParams = SlamParams(),
                    lm_params: LMParams = LMParams(), bucket: int = 256,
                    backend: str = "gtsam", init: str = "odometry",
-                   loop_gate: str = "none", *, device="cpu",
+                   loop_gate: str = "none", *, device=None,
                    dtype=torch.float64) -> PoseGraphResult:
     if loop_gate == "pcm":
         raise _not_ported("loop_gate='pcm'", "E (graph/pcm.py)")

@@ -194,7 +194,7 @@ NOISE_CASES = {
 def test_noise_models_match_jax(name):
     if name == "isotropic_sqrt_info":
         _close(*_both(lambda s: jnoise.isotropic_sqrt_info(6, s),
-                      lambda s: noise.isotropic_sqrt_info(6, s),
+                      lambda s: noise.isotropic_sqrt_info(6, s, device="cpu"),
                       np.array(0.3)))
         return
     _close(*_both(getattr(jnoise, name), getattr(noise, name),

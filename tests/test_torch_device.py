@@ -1,0 +1,128 @@
+"""The port's default device is the CUDA card.
+
+Without ``device=`` every entry point that creates tensors resolves to
+``cuda`` and, where there is no card, raises a RuntimeError that names it;
+nothing steps down to the CPU quietly. With ``device="cpu"`` each runs on
+the CPU. Whether there is a card is decided inside each test.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from graph_slam_tpu_torch import convert
+from graph_slam_tpu_torch.core import se3
+from graph_slam_tpu_torch.datasets import make_sphere_graph
+from graph_slam_tpu_torch.device import resolve
+from graph_slam_tpu_torch.graph import GraphBuilder, factors, variables
+from graph_slam_tpu_torch.io import VROLog
+from graph_slam_tpu_torch.noise import models as noise
+from graph_slam_tpu_torch.pipelines import build_pose_graph, run_pose_graph
+
+torch.set_num_threads(1)
+
+
+def _log(n=6):
+    xi = np.tile(np.array([0.0, 0.0, 0.05, 0.1, 0.0, 0.0]), (n - 1, 1))
+    info = np.tile(np.eye(6) * 100.0, (n - 1, 1, 1))
+    return VROLog(np.arange(1, n), np.arange(n - 1), xi, info)
+
+
+def _two_pose_graph():
+    b = GraphBuilder()
+    i = b.add_pose((np.eye(3), np.zeros(3)))
+    j = b.add_pose((np.eye(3), np.array([1.0, 0.0, 0.0])))
+    b.add_prior_pose(i, (np.eye(3), np.zeros(3)), sigmas=np.full(6, 1e-3))
+    b.add_between(i, j, (np.eye(3), np.array([1.0, 0.0, 0.0])),
+                  sigmas=np.full(6, 0.1))
+    return b
+
+
+def _np_graph_and_arena():
+    graph, values = _two_pose_graph().build(bucket=4, device="cpu")
+    return convert.to_numpy(graph), convert.to_numpy(values)
+
+
+def _propagation_fields():
+    z = np.zeros
+    return dict(planes_i=z((1, 4)), S_ni=z((1, 3, 3)), S_di=z(1),
+                prev_masks=z((1, 4, 4), bool), prev_counts=z(1), T_R=np.eye(3),
+                T_t=z(3), S_tij=z((3, 3)), intensity=z((4, 4)),
+                depth=z((4, 4)))
+
+
+ENTRY_POINTS = {
+    "run_pose_graph": lambda **kw: run_pose_graph(
+        _log(), bucket=8, **kw).values.pose_t,
+    "build_pose_graph": lambda **kw: build_pose_graph(
+        _log(), bucket=8, **kw)[1].pose_t,
+    "make_sphere_graph": lambda **kw: make_sphere_graph(
+        20, bucket=8, **kw)[1].pose_t,
+    "GraphBuilder.build": lambda **kw: _two_pose_graph().build(**kw)[1].pose_t,
+    "empty_arena": lambda **kw: variables.empty_arena(4, **kw).pose_t,
+    "empty_table": lambda **kw: factors.empty_table(
+        factors.PlaneTable, **kw).active,
+    "se3.identity": lambda **kw: se3.identity((2,), **kw).t,
+    "isotropic_sqrt_info": lambda **kw: noise.isotropic_sqrt_info(
+        3, 0.5, **kw),
+    "convert.tensor": lambda **kw: convert.tensor(np.arange(3.0), **kw),
+    "convert.graph_from_numpy": lambda **kw: convert.graph_from_numpy(
+        _np_graph_and_arena()[0], **kw).between.active,
+    "convert.arena_from_numpy": lambda **kw: convert.arena_from_numpy(
+        _np_graph_and_arena()[1], **kw).pose_t,
+    "convert.propagation_inputs": lambda **kw: convert.propagation_inputs(
+        **_propagation_fields(), **kw).depth,
+}
+
+
+def test_resolve():
+    assert resolve("cpu") == torch.device("cpu")
+    assert resolve(torch.device("cpu")) == torch.device("cpu")
+    assert resolve("cuda:1") == torch.device("cuda", 1)
+    if torch.cuda.is_available():
+        assert resolve(None) == torch.device("cuda")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            resolve(None)
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    call = ENTRY_POINTS[name]
+    assert call(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
+
+
+def test_no_signature_defaults_to_the_cpu():
+    """No function of the port has a ``device`` parameter that defaults to
+    anything but None."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import graph_slam_tpu_torch
+
+    seen = 0
+    for info in pkgutil.walk_packages(graph_slam_tpu_torch.__path__,
+                                      "graph_slam_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for _, obj in inspect.getmembers(mod):
+            members = [obj] if inspect.isfunction(obj) else (
+                [f for _, f in inspect.getmembers(obj, inspect.isfunction)]
+                if inspect.isclass(obj) else [])
+            for fn in members:
+                if not getattr(fn, "__module__", "").startswith(
+                        "graph_slam_tpu_torch"):
+                    continue
+                param = inspect.signature(fn).parameters.get("device")
+                if param is None or param.default is inspect.Parameter.empty:
+                    continue        # no default: the caller has resolved it
+                seen += 1
+                assert param.default is None, (fn.__module__, fn.__name__)
+    assert seen >= len(ENTRY_POINTS) - 1

@@ -55,7 +55,8 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
 
 def _sphere_pair(n_poses):
     gj, vj, _ = j_make_sphere(n_poses, dtype=jnp.float64, bucket=64)
-    gt, vt, _ = make_sphere_graph(n_poses, dtype=torch.float64, bucket=64)
+    gt, vt, _ = make_sphere_graph(n_poses, dtype=torch.float64, bucket=64,
+                                  device="cpu")
     return gj, vj, gt, vt
 
 
@@ -79,7 +80,8 @@ def _np_tree(x):
 def test_sphere_graph_tables_match_through_convert(sphere):
     gj, vj, gt, vt = sphere
     gj_np, vj_np = _np_tree(gj), _np_tree(vj)
-    conv_g, conv_v = graph_from_numpy(gj_np), arena_from_numpy(vj_np)
+    conv_g = graph_from_numpy(gj_np, device="cpu")
+    conv_v = arena_from_numpy(vj_np, device="cpu")
     for name in gt._fields:
         for field in getattr(gt, name)._fields:
             ref = np.asarray(getattr(getattr(gj_np, name), field))
@@ -116,7 +118,7 @@ def _fill_builder(b):
 
 def test_builder_matches():
     gj, vj = _fill_builder(jbuilder.GraphBuilder()).build(bucket=8)
-    gt, vt = _fill_builder(GraphBuilder()).build(bucket=8)
+    gt, vt = _fill_builder(GraphBuilder()).build(bucket=8, device="cpu")
     gj_np, vj_np = _np_tree(gj), _np_tree(vj)
     for name in gt._fields:
         for field in getattr(gt, name)._fields:
@@ -146,14 +148,15 @@ def test_variable_arena_matches():
     # exact for the layout, empty arena and mask; atol 1e-12 for the
     # retraction, the same closed forms as tests/test_torch_core.py
     caps = (4, 2, 1, 3, 2)
-    aj, at = jvariables.empty_arena(*caps), variables.empty_arena(*caps)
+    aj = jvariables.empty_arena(*caps)
+    at = variables.empty_arena(*caps, device="cpu")
     for field in at._fields:
         np.testing.assert_array_equal(to_numpy(getattr(at, field)),
                                       np.asarray(getattr(aj, field)))
     fields = _arena_fields()
     aj = jvariables.VariableArena(**{k: jnp.asarray(v)
                                      for k, v in fields.items()})
-    at = arena_from_numpy(types.SimpleNamespace(**fields))
+    at = arena_from_numpy(types.SimpleNamespace(**fields), device="cpu")
     assert tuple(variables.layout_of(at)) == tuple(jvariables.layout_of(aj))
     np.testing.assert_array_equal(to_numpy(variables.used_slot_mask(at)),
                                   np.asarray(jvariables.used_slot_mask(aj)))
@@ -277,7 +280,7 @@ def test_run_pose_graph_matches(tmp_path, robust):
     rj = jpg.run_pose_graph(j_read_vro_log(path),
                             jconfig.SlamParams(robust=robust), bucket=64)
     rt = run_pose_graph(read_vro_log(path), config.SlamParams(robust=robust),
-                        bucket=64)
+                        bucket=64, device="cpu")
     assert abs(rt.error0 - rj.error0) <= 1e-12 * rj.error0
     assert abs(rt.error - rj.error) <= 1e-9 * rj.error
     assert rt.error < rt.error0
@@ -310,7 +313,7 @@ def test_golden_vro_log():
     pins = json.load(open(os.path.join(GOLDEN, "chi2.json")))
     res = run_pose_graph(read_vro_log(os.path.join(GOLDEN,
                                                    "posegraph_vro.log")),
-                         bucket=64)
+                         bucket=64, device="cpu")
     assert abs(res.error0 - pins["vro_error0"]) <= 1e-6 * pins["vro_error0"]
     assert abs(res.error - pins["vro_error"]) <= 1e-6 * pins["vro_error"]
     # trajectory lines: id x y z qx qy qz qw seq
@@ -326,7 +329,7 @@ def test_golden_vro_log():
     {"params": config.SlamParams(robust="gnc-tls")}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        run_pose_graph(_small_log(8), **kwargs)
+        run_pose_graph(_small_log(8), device="cpu", **kwargs)
 
 
 def test_unported_factor_table_raises(sphere):

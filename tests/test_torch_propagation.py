@@ -77,7 +77,7 @@ def _jax_args(f, dtype):
 
 
 def _port_args(f, dtype):
-    return propagation_inputs(**f, dtype=dtype)
+    return propagation_inputs(**f, dtype=dtype, device="cpu")
 
 
 def test_render_matches_reference():
