@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--vio-frames N]
 
 Phases, one JSON line each:
 
@@ -24,21 +24,36 @@ Phases, one JSON line each:
              and 10 RealSense frames through ``propagate_plane``, every call
              launching the region-grow kernel.
 
-Phases 3-6 are the main path, driven on the port's default device (the
-card): the kernel's launch counter is set to 0 just before them and read
-just after. Then the kernel is timed on the fill inputs of real frames
-(phase ``frames``), and the script prints the kernel summary line and, last,
-``{"ok": true, "device": {...}}``. Any failed check raises, so the
+7. vio    — the VIO scan replay, ``run_vio(engine="scan",
+             plane_mode="off")``, on the plane-aided VIO scenario of 2,000
+             frames (``--vio-frames``): 200 Hz VN100 IMU, 20 samples a
+             frame, every 20th VO edge failed and carried by the IMU; a
+             cold and a warm replay in float64 (ATE within 1e-9 of the
+             path: the scenario is exact), one in float32, the final
+             dense batch LM over every frame, from the replay and from
+             perturbed values; the fixed-lag step on a perturbed window of
+             the replay's arena, a 200-frame replay and its LM from
+             perturbed values, each on the card against the CPU; host
+             syncs per record and a profiler breakdown of the warm replay.
+
+Phases 3-7 are the main path, driven on the port's default device (the
+card): the kernel's launch counter is set to 0 just before phases 3-6 and
+read just after, and again around phase 7, which launches no hand-written
+kernel. The region-grow kernel is timed on the fill inputs of real frames
+(phase ``frames``), and the script prints the kernel summary line and,
+last, ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 exit code is non-zero and no result line is printed. It needs one CUDA card
 and the repository beside it; it imports no JAX.
 """
 
+import argparse
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens")
@@ -513,7 +528,402 @@ def phase_frames():
     _require(len(rows) == 2, "expected one fill shape per camera")
 
 
-def main():
+def _ate(est_R, est_t, gt_R, gt_t):
+    """The bench's accuracy pair: translational ATE RMSE after a rigid
+    (Umeyama, no scale) alignment, and the mean geodesic rotation error in
+    degrees after a rotation-average alignment."""
+    import numpy as np
+
+    mu_e, mu_g = est_t.mean(0), gt_t.mean(0)
+    U, _, Vt = np.linalg.svd((gt_t - mu_g).T @ (est_t - mu_e) / len(est_t))
+    W = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        W[2, 2] = -1.0
+    R = U @ W @ Vt
+    d = (R @ est_t.T).T + (mu_g - R @ mu_e) - gt_t
+    ate = float(np.sqrt((d * d).sum(1).mean()))
+    U, _, Vt = np.linalg.svd(np.einsum("kij,klj->il", gt_R, est_R))
+    W = np.eye(3)
+    W[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    E = np.einsum("kji,jl,klm->kim", gt_R, U @ W @ Vt, est_R)
+    tr = np.clip((np.trace(E, axis1=1, axis2=2) - 1.0) / 2.0, -1.0, 1.0)
+    return ate, float(np.degrees(np.arccos(tr)).mean())
+
+
+VIO_CFG = dict(engine="scan", plane_mode="off", optimize_step=10,
+               max_imu_window=64, window=16)
+VIO_ATE_F64 = 1e-9       # ATE over path length, float64 (exact scenario)
+VIO_HELD_GN = 1e-9       # windowed_gn, card vs CPU, max abs over the arena
+VIO_HELD_REPLAY = 1e-8   # replay and LM, card vs CPU (abs; chi2 relative)
+
+
+def _vio_replay(scenario, dtype, final_batch=False):
+    """One timed ``run_vio`` on the card; returns (result, seconds)."""
+    import torch
+
+    from graph_slam_tpu_torch.pipelines import VioConfig, run_vio
+
+    log, times, stream, params = scenario[:4]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_vio(log, times, stream, params, dtype=dtype,
+                  cfg=VioConfig(**VIO_CFG, final_batch=final_batch))
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _vio_checks(res, scenario, label):
+    """The phase's gates on one replay; returns its accuracy numbers."""
+    import numpy as np
+    import torch
+
+    from graph_slam_tpu_torch.io.vro_log import FAILED_INFO_SENTINEL
+
+    log, *_, (gt_R, gt_t) = scenario
+    n = len(res.seq_ids)
+    valid = int((log.info[:, 0, 0] != FAILED_INFO_SENTINEL).sum())
+    step = VIO_CFG["optimize_step"]
+    scheduled = sum(1 for f in range(2, n + 1) if f % step == 0)
+    v = res.values
+    _require(v.pose_t.device.type == "cuda", f"{label}: not on the card")
+    _require(res.n_imu_factors == n - 1,
+             f"{label}: {res.n_imu_factors} IMU factors for {n} frames")
+    _require(res.n_vo_edges == valid,
+             f"{label}: {res.n_vo_edges} VO edges, {valid} valid records")
+    _require(len(res.chi2_log.rows) == scheduled + 1,
+             f"{label}: chi2 log has {len(res.chi2_log.rows)} entries, "
+             f"{scheduled} optimizations scheduled")
+    finite = all(bool(torch.isfinite(x[:n]).all())
+                 for x in (v.pose_R, v.pose_t, v.vel, v.bias))
+    chi2 = [r[3] for r in res.chi2_log.rows]
+    finite = finite and bool(np.isfinite(chi2).all()) and \
+        bool(np.isfinite([res.error0, res.error]).all())
+    seqs = np.asarray(res.seq_ids, int)
+    ate, rot = _ate(v.pose_R[:n].double().cpu().numpy(),
+                    v.pose_t[:n].double().cpu().numpy(), gt_R[seqs],
+                    gt_t[seqs])
+    path = float(np.linalg.norm(np.diff(gt_t, axis=0), axis=1).sum())
+    return {"finite": finite, "ate_mm": ate * 1e3, "ate_rot_deg": rot,
+            "ate_over_path": ate / path, "path_m": path,
+            "error0": res.error0, "error": res.error,
+            "window_chi2_max": float(np.max(chi2[:-1])) if len(chi2) > 1
+            else None, "optimizations": scheduled}
+
+
+def _count_syncs(scenario):
+    """Host syncs of one ``run_vio`` (setup and read-back included), as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _vio_replay(scenario, torch.float64)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _profile_replay(scenario, wall_s):
+    """One more replay of ``scenario`` under ``torch.profiler`` (device
+    activity only): its kernel launches and top device ops, and the device
+    busy share, its kernels' time over ``wall_s``, the wall of the same
+    replay timed without the profiler (which slows the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = _vio_replay(scenario, torch.float64)
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    return {"records": len(scenario[0]), "wall_s": wall_s,
+            "profiled_wall_s": prof_wall, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / wall_s,
+            "device_kernels": sum(r[1] for r in rows),
+            "launches_per_record": sum(r[1] for r in rows)
+            / len(scenario[0]),
+            "top_device_ops": [{"name": k[:90], "count": c, "ms": us / 1e3}
+                               for us, c, k in rows[:12]]}
+
+
+def _to(x, device):
+    """A factor graph or variable arena (NamedTuples of tensors, tables
+    nested) copied to ``device``."""
+    if isinstance(x, tuple):
+        return type(x)(*(_to(f, device) for f in x))
+    return x.to(device)
+
+
+def _perturbed(values, lo, hi, seed, scale=0.01):
+    """A CPU copy of the arena with the poses, velocities and biases of
+    frames ``lo``..``hi - 1`` moved: rotations by ``scale`` rad,
+    translations and velocities by ``scale`` m (m/s), biases by a tenth."""
+    import numpy as np
+    import torch
+
+    from graph_slam_tpu_torch.core import so3
+
+    r = np.random.default_rng(seed)
+    v = _to(values, "cpu")
+    n = hi - lo
+
+    def noise(*shape):
+        return torch.as_tensor(r.normal(size=shape) * scale, dtype=v.vel.dtype)
+
+    v.pose_R[lo:hi] = so3.expmap(noise(n, 3)) @ v.pose_R[lo:hi]
+    v.pose_t[lo:hi] += noise(n, 3)
+    v.vel[lo:hi] += noise(n, 3)
+    v.bias[lo:hi] += 0.1 * noise(n, 6)
+    return v
+
+
+def _max_diff(a, b, n):
+    return max(float((getattr(a, f)[:n].cpu() - getattr(b, f)[:n].cpu())
+                     .abs().max()) for f in ("pose_R", "pose_t", "vel",
+                                             "bias"))
+
+
+def windowed_gn_held(res, records, seed=1, device="cuda"):
+    """The fixed-lag step on ``device`` against the CPU, at the replay's
+    shapes: the last window of the replay's graph (the suffix starts and
+    per-table caps the scan engine uses), its free frames perturbed, two
+    damped GN iterations from the same values on both."""
+    from graph_slam_tpu_torch.graph import total_error
+    from graph_slam_tpu_torch.graph.online import window_graph, windowed_gn
+    from graph_slam_tpu_torch.pipelines.vio_scan import (_window_caps,
+                                                         _window_starts)
+
+    W = VIO_CFG["window"]
+    n = len(res.seq_ids)
+    caps = _window_caps(res.graph, W)
+    starts = _window_starts({"prior_pose": 1, "prior_vel": 1,
+                             "prior_bias": 1, "between": records,
+                             "imu": res.n_imu_factors}, caps)
+    v0 = _perturbed(res.values, n - W, n, seed)
+    out = []
+    for dev in (device, "cpu"):
+        win = window_graph(_to(res.graph, dev), starts, caps)
+        v = _to(v0, dev)
+        e0 = float(total_error(win, v))
+        v, e = windowed_gn(win, v, [n - W] * 3 + [0, 0], (W, W, W), 1e-6, 2)
+        out.append((e0, float(e), v))
+    (e0, e, v), (_, e_cpu, v_cpu) = out
+    return {"window": W, "chi2_perturbed": e0, "chi2_after": e,
+            "chi2_after_cpu": e_cpu, "max_abs_err": _max_diff(v, v_cpu, n),
+            "on_card": v.pose_t.device.type == "cuda"}
+
+
+def lm_held(res, seed=2, device="cuda", against_cpu=True):
+    """The final batch LM on ``device`` from the replay's values with every
+    frame but the first perturbed; against the same LM on the CPU."""
+    from graph_slam_tpu_torch.graph import LMParams, lm_optimize, total_error
+
+    n = len(res.seq_ids)
+    v0 = _perturbed(res.values, 1, n, seed)
+    t0 = time.perf_counter()
+    card = lm_optimize(_to(res.graph, device), _to(v0, device), LMParams())
+    out = {"frames": n, "error0": float(total_error(res.graph,
+                                                     _to(v0, device))),
+           "error": float(card.error), "iterations": card.iterations,
+           "lm_s": time.perf_counter() - t0, "values": card.values}
+    if against_cpu:
+        cpu = lm_optimize(_to(res.graph, "cpu"), v0, LMParams())
+        out.update(error_cpu=float(cpu.error), iterations_cpu=cpu.iterations,
+                   max_abs_err=_max_diff(card.values, cpu.values, n))
+    return out
+
+
+def replay_held(scenario, device="cuda"):
+    """The same ``run_vio`` on ``device`` and on the CPU (float64)."""
+    from graph_slam_tpu_torch.pipelines import VioConfig, run_vio
+
+    log, times, stream, params = scenario[:4]
+    card, cpu = (run_vio(log, times, stream, params, device=dev,
+                         cfg=VioConfig(**VIO_CFG, final_batch=False))
+                 for dev in (device, "cpu"))
+    chi2 = max(abs(a[3] - b[3]) / max(1.0, abs(b[3]))
+               for a, b in zip(card.chi2_log.rows, cpu.chi2_log.rows))
+    return {"frames": len(cpu.seq_ids),
+            "counts_equal": (card.n_imu_factors, card.n_vo_edges)
+            == (cpu.n_imu_factors, cpu.n_vo_edges),
+            "max_abs_err": _max_diff(card.values, cpu.values,
+                                     len(cpu.seq_ids)),
+            "chi2_rel_err": chi2,
+            "on_card": card.values.pose_t.is_cuda}
+
+
+def _imu_jacobian_at_identity():
+    """The IMU row's Jacobian on the card at delta = 0 with every rotation
+    the identity (``logmap`` on its Taylor branch): finite, and equal to
+    the same rows' on the CPU."""
+    import torch
+
+    from graph_slam_tpu_torch.graph import factors
+
+    def rows(device):
+        eye = torch.eye(3, dtype=torch.float64, device=device).expand(4, 3, 3)
+        z3 = torch.zeros(4, 3, dtype=torch.float64, device=device)
+        z6 = torch.zeros(4, 6, dtype=torch.float64, device=device)
+        g = torch.tensor([0.0, 0.0, -9.81], dtype=torch.float64,
+                         device=device).expand(4, 3)
+        dt = torch.full((4,), 0.1, dtype=torch.float64, device=device)
+        H = torch.full((4, 3, 3), 0.01, dtype=torch.float64, device=device)
+        return factors._ImuRows(eye, z3, z3, z6, eye, 0.5 * g * 0.01,
+                                g * 0.1, z6, eye, z3, z3, H, H, H, H, H, z6,
+                                dt, g)
+
+    out = []
+    for device in ("cuda", "cpu"):
+        r = rows(device)
+        out.append(factors._imu_jacobian(r, factors._imu_parts(r)))
+    J, J_cpu = out
+    _require(bool(torch.isfinite(J).all()),
+             "IMU Jacobian not finite at identity on the card")
+    err = float((J.cpu() - J_cpu).abs().max())
+    _require(err <= 1e-12, f"IMU Jacobian at identity: card vs CPU {err}")
+    return err
+
+
+def phase_vio(n_frames):
+    import numpy as np
+    import torch
+
+    from graph_slam_tpu_torch.datasets import make_vio_plane_scenario
+
+    t0 = time.perf_counter()
+    scenario = make_vio_plane_scenario(n_frames=n_frames, fail_every=20,
+                                       render=False, return_gt=True)
+    gen_s = time.perf_counter() - t0
+    records = len(scenario[0])
+    _require(scenario[3].gravity.device.type == "cuda", "params not on card")
+    out = {"phase": "vio", "frames": n_frames, "records": records,
+           "failed_records": records - int(scenario[0].valid.sum()),
+           "config": VIO_CFG, "scenario_s": gen_s,
+           "imu_jacobian_identity_card_vs_cpu": _imu_jacobian_at_identity()}
+
+    cold, cold_s = _vio_replay(scenario, torch.float64)
+    torch.cuda.reset_peak_memory_stats()
+    warm, warm_s = _vio_replay(scenario, torch.float64)
+    warm_peak = torch.cuda.max_memory_allocated() / 1e9
+    out["f64"] = dict(_vio_checks(warm, scenario, "f64 warm"),
+                      cold_s=cold_s, warm_s=warm_s,
+                      cold_frames_per_s=n_frames / cold_s,
+                      warm_frames_per_s=n_frames / warm_s,
+                      warm_loop_s=warm.timers["replay_scan"]["total_s"],
+                      warm_peak_mem_gb=warm_peak)
+    cold_chk = _vio_checks(cold, scenario, "f64 cold")
+    _require(cold_chk["finite"] and out["f64"]["finite"],
+             "f64 replay not finite")
+    # the bench's gate is 2% of the path; the scenario's edges and IMU are
+    # exact, so a float64 replay sits at the rounding floor (3e-14 read)
+    for chk in (cold_chk, out["f64"]):
+        _require(chk["ate_over_path"] <= VIO_ATE_F64,
+                 f"ATE {chk['ate_mm']:.3g} mm over {VIO_ATE_F64:g} of the "
+                 f"{chk['path_m']:.3f} m path")
+    del cold
+
+    # the fixed-lag step with work to do, on the card against the CPU, at
+    # the phase's shapes (its window over the whole replay's arena)
+    held = windowed_gn_held(warm, records)
+    out["windowed_gn_held"] = held
+    _require(held["on_card"], "windowed_gn did not run on the card")
+    _require(held["max_abs_err"] <= VIO_HELD_GN,
+             f"windowed_gn card vs CPU {held['max_abs_err']:.3g}")
+    _require(held["chi2_after"] <= 1e-3 * held["chi2_perturbed"],
+             f"windowed_gn: chi2 {held['chi2_perturbed']:.3g} -> "
+             f"{held['chi2_after']:.3g}")
+    del warm
+
+    f32, f32_s = _vio_replay(scenario, torch.float32)
+    out["f32"] = dict(_vio_checks(f32, scenario, "f32"), wall_s=f32_s,
+                      frames_per_s=n_frames / f32_s)
+    del f32
+
+    # the final dense batch LM over every frame (D = 15 x frames): a
+    # (D, D) float64 H, so only at the default size; once from the replay
+    # (the reference's output) and once from perturbed values, which it
+    # must bring back to the exact trajectory
+    if 15 * n_frames <= 30000:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fb, fb_s = _vio_replay(scenario, torch.float64, final_batch=True)
+        chk = _vio_checks(fb, scenario, "final batch")
+        _require(chk["finite"], "final batch not finite")
+        _require(chk["ate_over_path"] <= VIO_ATE_F64,
+                 f"final batch ATE {chk['ate_mm']:.3g} mm")
+        out["final_batch"] = dict(
+            chk, wall_s=fb_s, lm_s=fb.timers["final_batch"]["total_s"],
+            tangent_dim=15 * int(fb.values.pose_t.shape[0]),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        lm = lm_held(fb, against_cpu=False)
+        v = lm.pop("values")
+        seqs = np.asarray(fb.seq_ids, int)
+        ate, _ = _ate(v.pose_R[:n_frames].cpu().numpy(),
+                      v.pose_t[:n_frames].cpu().numpy(),
+                      *(g[seqs] for g in scenario[-1]))
+        lm["ate_over_path"] = ate / chk["path_m"]
+        out["final_batch_from_perturbed"] = lm
+        _require(lm["error"] <= 1e-12 * lm["error0"]
+                 and lm["ate_over_path"] <= VIO_ATE_F64,
+                 f"LM from perturbed values: chi2 {lm['error0']:.3g} -> "
+                 f"{lm['error']:.3g}, ATE {ate:.3g} m")
+        del fb, v
+        torch.cuda.empty_cache()
+    else:
+        out["final_batch"] = "not run: dense H beyond 30,000 tangent dims"
+
+    # host syncs per record: the slope between two replay lengths
+    short = [make_vio_plane_scenario(n_frames=k, fail_every=20, render=False,
+                                     return_gt=True) for k in (100, 200)]
+    syncs = [_count_syncs(sc) for sc in short]
+    out["host_syncs"] = {"replay_100_frames": syncs[0],
+                         "replay_200_frames": syncs[1],
+                         "per_record": (syncs[1] - syncs[0])
+                         / (len(short[1][0]) - len(short[0][0]))}
+
+    # the whole replay and the final LM on the card against the CPU, on
+    # the 200-frame scenario (a CPU run at the phase's size is too slow)
+    held = replay_held(short[1])
+    out["replay_held_200_frames"] = held
+    _require(held["on_card"] and held["counts_equal"]
+             and held["max_abs_err"] <= VIO_HELD_REPLAY
+             and held["chi2_rel_err"] <= VIO_HELD_REPLAY,
+             f"200-frame replay card vs CPU: {held}")
+    small, _ = _vio_replay(short[1], torch.float64)
+    lm = lm_held(small)
+    del lm["values"]
+    out["lm_held_200_frames"] = lm
+    _require(lm["max_abs_err"] <= VIO_HELD_REPLAY
+             and abs(lm["error"] - lm["error_cpu"]) <= VIO_HELD_REPLAY
+             * max(1.0, lm["error_cpu"]),
+             f"200-frame LM card vs CPU: {lm}")
+
+    # the warm replay again under the profiler (at 2,000 frames at most),
+    # its busy share against the same replay's wall without the profiler
+    if n_frames <= 2000:
+        out["profile"] = _profile_replay(scenario, warm_s)
+    else:
+        sc = make_vio_plane_scenario(n_frames=2000, fail_every=20,
+                                     render=False, return_gt=True)
+        out["profile"] = _profile_replay(
+            sc, _vio_replay(sc, torch.float64)[1])
+    _emit(out)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--vio-frames", type=int, default=2000,
+                    help="frames of the VIO scan replay (default 2000)")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -547,6 +957,9 @@ def main():
     phase_planes()
     launches = region_grow.launches
     _require(launches > 0, "the main path never launched region_grow")
+    region_grow.launches = 0
+    phase_vio(args.vio_frames)
+    _require(region_grow.launches == 0, "the VIO path launched region_grow")
     phase_frames()
 
     _emit({"kernels": [{

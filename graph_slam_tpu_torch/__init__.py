@@ -7,9 +7,11 @@ relative path. It imports torch and numpy, never jax or ``graph_slam_tpu``
 pieces it needs are copied, with their source named in each docstring.
 
 Ported so far: the pose-graph backend (``core``, ``noise``, ``graph``,
-``datasets.synthetic``, ``pipelines.posegraph``, ``io.vro_log``) and the
+``datasets.synthetic``, ``pipelines.posegraph``, ``io.vro_log``), the
 plane-rescue propagation (``planes``) with its hand-written CUDA region
-grow (``csrc/region_grow.cu``, built by ``kernels.build``).
+grow (``csrc/region_grow.cu``, built by ``kernels.build``), and IMU
+preintegration with the VIO scan engine without planes (``imu``,
+``core.extrinsics``, ``graph.online``, ``pipelines.vio``).
 
 Numerics set on import, mirroring ``graph_slam_tpu/__init__.py`` (which
 forces full-precision matmuls because reduced precision diverges the

@@ -2,7 +2,11 @@
 
 The JAX package's pytrees go in as any object with the same field names
 whose leaves are array-likes (``jax.tree.map(np.asarray, graph)`` for
-example), so this module needs no jax. Integer fields become int64 (torch's
+example), so this module needs no jax. ``graph_from_numpy`` carries every
+table (the IMU, velocity- and bias-prior tables included) and
+``arena_from_numpy`` a VIO arena with its velocities and biases;
+``imu_params_from_numpy`` and ``preint_from_numpy`` carry the IMU noise
+model and a preintegration state. Integer fields become int64 (torch's
 index type), bool fields bool, floating fields the requested ``dtype``.
 ``to_numpy`` goes the other way for tensors, NamedTuples and sequences.
 """
@@ -16,17 +20,14 @@ import torch
 
 from .core import se3
 from .device import resolve
-from .graph.factors import (BetweenPoseTable, FactorGraph, ImuTable,
-                            PlaneTable, PriorPointTable, PriorPoseTable,
-                            PriorVec3Table, PriorVec6Table, ProjectionTable)
+from .graph.factors import TABLE_TYPES, FactorGraph
 from .graph.variables import VariableArena
+from .imu import ImuParams, PreintState
 
 __all__ = ["tensor", "graph_from_numpy", "arena_from_numpy",
+           "imu_params_from_numpy", "preint_from_numpy",
            "PropagationInputs", "propagation_inputs", "to_numpy"]
 
-_TABLE_BY_FIELD = dict(zip(FactorGraph._fields, (
-    PriorPoseTable, BetweenPoseTable, PriorVec3Table, PriorVec6Table,
-    PlaneTable, ImuTable, ProjectionTable, PriorPointTable)))
 
 
 def tensor(x, *, device=None, dtype=torch.float64):
@@ -53,7 +54,7 @@ def graph_from_numpy(graph, *, device=None,
     device = resolve(device)
     return FactorGraph(**{
         name: _convert(typ, getattr(graph, name), device, dtype)
-        for name, typ in _TABLE_BY_FIELD.items()})
+        for name, typ in TABLE_TYPES.items()})
 
 
 def arena_from_numpy(values, *, device=None,
@@ -61,6 +62,18 @@ def arena_from_numpy(values, *, device=None,
     """A JAX ``VariableArena`` (numpy leaves) -> the port's arena."""
     device = resolve(device)
     return _convert(VariableArena, values, device, dtype)
+
+
+def imu_params_from_numpy(params, *, device=None,
+                          dtype=torch.float64) -> ImuParams:
+    """A JAX ``ImuParams`` (numpy leaves) -> the port's ``ImuParams``."""
+    return _convert(ImuParams, params, resolve(device), dtype)
+
+
+def preint_from_numpy(state, *, device=None,
+                      dtype=torch.float64) -> PreintState:
+    """A JAX ``PreintState`` (numpy leaves) -> the port's ``PreintState``."""
+    return _convert(PreintState, state, resolve(device), dtype)
 
 
 class PropagationInputs(NamedTuple):

@@ -1,6 +1,6 @@
 """Lie-group cores of the port (``graph_slam_tpu/core`` counterpart)."""
 
-from . import se3, so3
+from . import extrinsics, se3, so3
 from .se3 import Pose
 
-__all__ = ["se3", "so3", "Pose"]
+__all__ = ["extrinsics", "se3", "so3", "Pose"]

@@ -23,6 +23,8 @@ __all__ = [
     "left_jacobian_inverse",
     "quat_to_matrix",
     "matrix_to_quat",
+    "rzryrx",
+    "rpy",
 ]
 
 _SMALL = 1e-10  # theta^2 threshold below which Taylor expansions are used
@@ -201,3 +203,28 @@ def matrix_to_quat(R):
     n = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
     q = q / torch.where(n > 0, n, torch.ones_like(n))
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def rzryrx(roll, pitch, yaw):
+    """GTSAM ``Rot3::RzRyRx(roll, pitch, yaw)`` = Rz(yaw) @ Ry(pitch) @ Rx(roll)."""
+    sr, cr = torch.sin(roll), torch.cos(roll)
+    sp, cp = torch.sin(pitch), torch.cos(pitch)
+    sy, cy = torch.sin(yaw), torch.cos(yaw)
+    return torch.stack(
+        [
+            torch.stack([cy * cp, cy * sp * sr - sy * cr,
+                         cy * sp * cr + sy * sr], dim=-1),
+            torch.stack([sy * cp, sy * sp * sr + cy * cr,
+                         sy * sp * cr - cy * sr], dim=-1),
+            torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rpy(R):
+    """Rotation matrix -> (roll, pitch, yaw), inverse of :func:`rzryrx`."""
+    pitch = -torch.arcsin(torch.clamp(R[..., 2, 0], -1.0, 1.0))
+    roll = torch.arctan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.arctan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([roll, pitch, yaw], dim=-1)

@@ -1,4 +1,4 @@
-"""Synthetic generators (port of ``datasets/synthetic.py:22-96,174-202``).
+"""Synthetic generators (port of ``datasets/synthetic.py:22-96,174-357``).
 
 ``make_sphere_graph`` builds the sphere2500-class pose graph: a spiral over
 a sphere with odometry edges and short-range loop closures, ~4 edges per
@@ -8,6 +8,12 @@ two packages build the same graph from the same seed.
 
 ``_render_plane_frame`` ray-casts depth and intensity of world planes
 (the plane-rescue scenario's renderer), a numpy copy.
+
+``make_vio_plane_scenario`` is the plane-aided VIO workload: an IMU stream,
+the VRO log with periodic tracking failures, optional rendered frames and
+the exact ground truth. It draws the reference's random numbers in the
+reference's order and builds everything in float64 on the CPU, whatever
+dtype the replay under test runs in.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import torch
 from ..device import resolve
 from ..graph import GraphBuilder
 
-__all__ = ["make_sphere_graph", "sphere_ground_truth"]
+__all__ = ["make_sphere_graph", "sphere_ground_truth",
+           "make_vio_plane_scenario"]
 
 
 def _so3_exp(w):
@@ -128,3 +135,135 @@ def _render_plane_frame(K, R_cam, t_cam, scene, noise=0.0, seed=0):
     if noise:
         depth = depth + r.normal(size=depth.shape) * noise * (depth > 0)
     return inten.astype(np.float32), depth.astype(np.float32)
+
+
+def _so3_exp_batch(w):
+    """Batched numpy Rodrigues with the reference's small-angle guard."""
+    th2 = np.sum(w * w, axis=-1)
+    big = th2 > 1e-10
+    th = np.sqrt(np.where(big, th2, 1.0))
+    a = np.where(big, np.sin(th) / th, 1.0 - th2 / 6.0)
+    b = np.where(big, 2.0 * np.sin(0.5 * th) ** 2 / th2, 0.5 - th2 / 24.0)
+    z = np.zeros_like(w[..., 0])
+    W = np.stack([np.stack([z, -w[..., 2], w[..., 1]], -1),
+                  np.stack([w[..., 2], z, -w[..., 0]], -1),
+                  np.stack([-w[..., 1], w[..., 0], z], -1)], -2)
+    return np.eye(3) + a[..., None, None] * W + b[..., None, None] * (W @ W)
+
+
+def make_vio_plane_scenario(n_frames: int = 200, per: int = 20,
+                            fail_every: int = 20, seed: int = 0,
+                            motion: float = 0.08, noise: float = 0.002,
+                            render: bool = True, return_gt: bool = False, *,
+                            device=None):
+    """Plane-aided VIO benchmark workload: IMU stream + VRO log with
+    periodic tracking failures + rendered SR4000 frames of a two-plane
+    room (wall z=4, floor y=0.8).
+
+    The VO log carries exact relative poses except the failed records
+    (info sentinel 1e4). The ground truth integrates the synthetic IMU
+    windows with the port's preintegration, in float64 on the CPU: a long
+    float32 attitude/velocity chain diverges. Only the returned
+    ``ImuParams`` live on ``device`` (``None``: the CUDA card).
+
+    Returns ``(log, times, stream, imu_params, frames, K)`` where
+    ``frames`` is a ``seq -> (intensity, depth)`` dict, a lazy callable
+    (``render="lazy"``) or None (``render=False``). With ``return_gt=True``
+    the exact per-frame ground-truth poses ``(Rs (N,3,3), ts (N,3))`` are
+    appended.
+    """
+    from ..config import SR4000
+    from ..core import se3
+    from ..imu import (ImuStream, init_preint, integrate_segment,
+                       predict_navstate, vn100_params)
+    from ..imu.preintegration import PreintState
+    from ..io.vro_log import FAILED_INFO_SENTINEL, VROLog
+
+    params = vn100_params(device=device)
+    cpu = vn100_params(device="cpu")
+    K = SR4000
+    dt = 1.0 / 200.0
+    n_meas = n_frames * per + 10
+    r = np.random.default_rng(seed)
+    gyr = r.normal(size=(n_meas, 3)) * (motion * 0.25)
+    drive = r.normal(size=(n_meas, 3)) * motion
+    for k in range(1, n_meas):
+        gyr[k] = 0.9 * gyr[k - 1] + 0.1 * gyr[k]
+        drive[k] = 0.9 * drive[k - 1] + 0.1 * drive[k]
+
+    # gravity-consistent accelerometer: rotate gravity into the current
+    # body frame and drive a mean-reverting world velocity, so the
+    # trajectory stays room-scale and the specific force matches the
+    # integrated attitude
+    g_w = cpu.gravity.numpy()
+    E = _so3_exp_batch(gyr * dt)
+    acc = np.empty((n_meas, 3))
+    R, v = np.eye(3), np.zeros(3)
+    for k in range(n_meas):
+        R = R @ E[k]
+        v_new = 0.999 * v + drive[k] * dt
+        acc[k] = R.T @ ((v_new - v) / dt - g_w)
+        v = v_new
+    stream = ImuStream(t=np.arange(n_meas) * dt, acc=acc, gyr=gyr, dt=dt)
+
+    # ground-truth chain: every frame's window preintegrated (batched),
+    # then the NavState predictions one frame after another
+    m = n_frames - 1
+    acc_w = torch.as_tensor(acc[:m * per].reshape(m, per, 3))
+    gyr_w = torch.as_tensor(gyr[:m * per].reshape(m, per, 3))
+    parts = []
+    for lo in range(0, m, 2048):
+        hi = min(m, lo + 2048)
+        st0 = init_preint(torch.zeros(hi - lo, 6), cpu, device="cpu")
+        parts.append(integrate_segment(st0, acc_w[lo:hi], gyr_w[lo:hi],
+                                       torch.full((hi - lo, per), dt), cpu))
+    st = PreintState(*(torch.cat(x) for x in zip(*parts))) if parts else None
+    Rs = np.empty((n_frames, 3, 3))
+    ts = np.empty((n_frames, 3))
+    X = se3.Pose(torch.eye(3), torch.zeros(3))
+    vel = torch.zeros(3)
+    Rs[0], ts[0] = np.eye(3), np.zeros(3)
+    for f in range(1, n_frames):
+        X, vel = predict_navstate(PreintState(*(x[f - 1] for x in st)), X,
+                                  vel, torch.zeros(6), cpu.gravity)
+        Rs[f], ts[f] = X.R.numpy(), X.t.numpy()
+
+    scene = [(np.array([0.0, 0.0, 1.0, -4.0]), 150.0),
+             (np.array([0.0, 1.0, 0.0, -0.8]), 80.0)]
+    frames = None
+    if render == "lazy":
+        # render on demand with a small cache
+        cache: dict = {}
+
+        def frames(f):
+            if not (0 <= f < n_frames):
+                return None
+            if f not in cache:
+                if len(cache) > 128:
+                    cache.clear()
+                cache[f] = _render_plane_frame(K, Rs[f], ts[f], scene,
+                                               noise=noise, seed=seed + f)
+            return cache[f]
+    elif render:
+        frames = {f: _render_plane_frame(K, Rs[f], ts[f], scene,
+                                         noise=noise, seed=seed + f)
+                  for f in range(n_frames)}
+
+    info = np.diag([8e3] * 3 + [2500.0] * 3)
+    f_all = np.arange(1, n_frames)
+    failed = (f_all % fail_every == 0) if fail_every else \
+        np.zeros(m, bool)
+    xis = np.zeros((m, 6))
+    infos = np.tile(info, (m, 1, 1))
+    infos[failed] = np.eye(6) * FAILED_INFO_SENTINEL
+    ok = f_all[~failed]
+    if len(ok):
+        Rt = torch.as_tensor
+        xis[~failed] = se3.logmap(se3.between(
+            se3.Pose(Rt(Rs[ok - 1]), Rt(ts[ok - 1])),
+            se3.Pose(Rt(Rs[ok]), Rt(ts[ok])))).numpy()
+    log = VROLog(f_all, f_all - 1, xis, infos)
+    times = {f: f * per * dt for f in range(n_frames)}
+    if return_gt:
+        return log, times, stream, params, frames, K, (Rs, ts)
+    return log, times, stream, params, frames, K

@@ -1,13 +1,14 @@
 """Host-side graph construction: append factors, freeze to padded tables
 (port of ``graph/builder.py``).
 
-Callers add poses, pose priors and between factors one by one in numpy;
-``build()`` freezes them into the ``FactorGraph`` + ``VariableArena`` of
-tensors on the requested device and dtype. Capacities round up to buckets,
-as in the reference, so graphs keep the reference's padded shapes.
+Callers add variables and factors one by one in numpy; ``build()`` freezes
+them into the ``FactorGraph`` + ``VariableArena`` of tensors on the
+requested device and dtype. Capacities round up to buckets, as in the
+reference, so graphs keep the reference's padded shapes.
 
-Ported: poses, ``add_prior_pose`` and ``add_between``. Velocities, biases,
-planes, points and their factors are not ported yet (ROADMAP items B-D).
+Ported: poses, velocities and biases with their priors, between factors
+and CombinedImuFactor rows. Planes, points and their factors are not
+ported yet (ROADMAP items C-D).
 """
 
 from __future__ import annotations
@@ -16,12 +17,14 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from .factors import (BetweenPoseTable, FactorGraph, ImuTable, PlaneTable,
-                      PriorPointTable, PriorPoseTable, PriorVec3Table,
-                      PriorVec6Table, ProjectionTable, empty_table)
+from .factors import TABLE_TYPES, FactorGraph, empty_table
 from .variables import VariableArena
 
 __all__ = ["GraphBuilder", "round_up"]
+
+# the PreintState fields an IMU row copies as they are
+_IMU_FIELDS = ("dR", "dp", "dv", "H_R_bg", "H_p_ba", "H_p_bg", "H_v_ba",
+               "H_v_bg", "bias_hat")
 
 
 def round_up(n: int, bucket: int = 64) -> int:
@@ -58,11 +61,36 @@ def _as_Rt(pose):
     raise ValueError(f"cannot interpret pose with shape {pose.shape}")
 
 
+def _freeze(table_type, rows, bucket, device, dtype):
+    """Padded table from row dicts keyed by field name (plus ``robust``):
+    capacity 0 when empty, else the bucket-rounded count; padding rows keep
+    ``empty_table``'s inactive defaults. numpy builds the columns in
+    float64 and each is cast once on upload."""
+    n = len(rows)
+    cap = round_up(n, bucket) if n else 0
+    cols = {f: t.numpy().copy() for f, t in zip(
+        table_type._fields, empty_table(table_type, cap, device="cpu"))}
+    for r, row in enumerate(rows):
+        for f, v in row.items():
+            if f != "robust":
+                cols[f][r] = v
+            elif v is not None:
+                cols["robust_kind"][r], cols["robust_k"][r] = 1, float(v)
+    cols["active"][:n] = True
+
+    def up(a):
+        t = torch.as_tensor(a, device=device)
+        return t.to(dtype) if t.is_floating_point() else t
+
+    return table_type(**{f: up(a) for f, a in cols.items()})
+
+
 class GraphBuilder:
     def __init__(self):
         self._poses: list[tuple[np.ndarray, np.ndarray]] = []
-        self._prior_pose: list[dict] = []
-        self._between: list[dict] = []
+        self._vels: list[np.ndarray] = []
+        self._biases: list[np.ndarray] = []
+        self._rows = {name: [] for name in TABLE_TYPES}
 
     # -- variables -----------------------------------------------------
     def add_pose(self, pose) -> int:
@@ -71,6 +99,14 @@ class GraphBuilder:
 
     def set_pose(self, idx: int, pose):
         self._poses[idx] = _as_Rt(pose)
+
+    def add_vel(self, v) -> int:
+        self._vels.append(np.asarray(v, np.float64))
+        return len(self._vels) - 1
+
+    def add_bias(self, b) -> int:
+        self._biases.append(np.asarray(b, np.float64))
+        return len(self._biases) - 1
 
     @property
     def num_poses(self) -> int:
@@ -82,13 +118,46 @@ class GraphBuilder:
     # -- factors --------------------------------------------------------
     def add_prior_pose(self, idx: int, pose, robust=None, **noise):
         R, t = _as_Rt(pose)
-        self._prior_pose.append(dict(a=idx, R=R, t=t, S=_sqrt_info(6, **noise),
-                                     robust=robust))
+        self._rows["prior_pose"].append(dict(
+            idx=idx, mean_R=R, mean_t=t, sqrt_info=_sqrt_info(6, **noise),
+            robust=robust))
 
     def add_between(self, i: int, j: int, pose, robust=None, **noise):
         R, t = _as_Rt(pose)
-        self._between.append(dict(a=i, b=j, R=R, t=t, S=_sqrt_info(6, **noise),
-                                  robust=robust))
+        self._rows["between"].append(dict(
+            i=i, j=j, meas_R=R, meas_t=t, sqrt_info=_sqrt_info(6, **noise),
+            robust=robust))
+
+    def add_prior_vel(self, idx: int, mean, robust=None, **noise):
+        self._rows["prior_vel"].append(dict(
+            idx=idx, mean=np.asarray(mean, np.float64),
+            sqrt_info=_sqrt_info(3, **noise), robust=robust))
+
+    def add_prior_bias(self, idx: int, mean, robust=None, **noise):
+        self._rows["prior_bias"].append(dict(
+            idx=idx, mean=np.asarray(mean, np.float64),
+            sqrt_info=_sqrt_info(6, **noise), robust=robust))
+
+    def add_imu_factor(self, i: int, j: int, preint, gravity, robust=None,
+                       cov=None):
+        """CombinedImuFactor row from a ``PreintState`` (tensors or numpy).
+
+        ``gravity``: (3,) world gravity vector (from ``ImuParams``).
+        ``cov`` overrides the preintegrated covariance if given; whitening is
+        the inverse Cholesky factor of the 15x15 covariance.
+        """
+        def host(x):
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu()
+            return np.asarray(x, np.float64)
+
+        C = host(cov if cov is not None else preint.cov)
+        C = 0.5 * (C + C.T)
+        row = {f: host(getattr(preint, f)) for f in _IMU_FIELDS}
+        row.update(i=i, j=j, dt=float(host(preint.dt)), gravity=host(gravity),
+                   sqrt_info=np.linalg.inv(np.linalg.cholesky(C)),
+                   robust=robust)
+        self._rows["imu"].append(row)
 
     # -- freeze ----------------------------------------------------------
     def build(self, bucket: int = 64, *, device=None, dtype=torch.float64):
@@ -96,13 +165,20 @@ class GraphBuilder:
         (``device=None``: the CUDA card).
 
         Index, kind and count fields are int64 (torch's index type), masks
-        are bool, everything else ``dtype``; numpy builds the padded arrays
-        in float64 and each is cast once on upload.
+        are bool, everything else ``dtype``. The pose arena holds at least
+        one bucket; the velocity and bias arenas have capacity 0 when no
+        such variable was added.
         """
         device = resolve(device)
 
-        def up(x, dt=dtype):
-            return torch.as_tensor(np.asarray(x), device=device).to(dt)
+        def up(x):
+            return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+
+        def arena(rows, width):
+            cap = round_up(len(rows), bucket) if rows else 0
+            out = np.zeros((cap, width))
+            out[:len(rows)] = np.reshape(rows, (-1, width))
+            return up(out)
 
         n = len(self._poses)
         cap = round_up(max(n, 1), bucket)
@@ -114,52 +190,16 @@ class GraphBuilder:
         def count(k):
             return torch.tensor(k, dtype=torch.int64, device=device)
 
-        def zeros(*shape):
-            return torch.zeros(*shape, dtype=dtype, device=device)
-
         values = VariableArena(
-            pose_R=up(pose_R), pose_t=up(pose_t), vel=zeros(0, 3),
-            bias=zeros(0, 6), plane=zeros(0, 4), point=zeros(0, 3),
-            num_poses=count(n), num_vels=count(0), num_biases=count(0),
-            num_planes=count(0), num_points=count(0),
+            pose_R=up(pose_R), pose_t=up(pose_t), vel=arena(self._vels, 3),
+            bias=arena(self._biases, 6),
+            plane=torch.zeros(0, 4, dtype=dtype, device=device),
+            point=torch.zeros(0, 3, dtype=dtype, device=device),
+            num_poses=count(n), num_vels=count(len(self._vels)),
+            num_biases=count(len(self._biases)), num_planes=count(0),
+            num_points=count(0),
         )
-
-        def freeze(rows):
-            """Padded columns of a pose-factor table: capacity 0 when empty,
-            else the bucket-rounded count; padding rows are inactive
-            identities with zero sqrt-information."""
-            k = len(rows)
-            c = round_up(k, bucket) if k else 0
-            a = np.zeros(c, np.int64)
-            b = np.zeros(c, np.int64)
-            R = np.tile(np.eye(3), (c, 1, 1))
-            t = np.zeros((c, 3))
-            S = np.zeros((c, 6, 6))
-            kind = np.zeros(c, np.int64)
-            kval = np.ones(c)
-            for r, row in enumerate(rows):
-                a[r], b[r] = row["a"], row.get("b", 0)
-                R[r], t[r], S[r] = row["R"], row["t"], row["S"]
-                if row["robust"] is not None:
-                    kind[r], kval[r] = 1, float(row["robust"])
-            active = np.arange(c) < k
-            return (up(a, torch.int64), up(b, torch.int64), up(R), up(t),
-                    up(S), up(kind, torch.int64), up(kval),
-                    up(active, torch.bool))
-
-        idx, _, R, t, S, kind, kval, active = freeze(self._prior_pose)
-        prior_pose = PriorPoseTable(idx, R, t, S, kind, kval, active)
-        i, j, R, t, S, kind, kval, active = freeze(self._between)
-        between = BetweenPoseTable(i, j, R, t, S, kind, kval, active)
-
-        def empty(typ):
-            return empty_table(typ, dtype=dtype, device=device)
-
-        graph = FactorGraph(
-            prior_pose=prior_pose, between=between,
-            prior_vel=empty(PriorVec3Table), prior_bias=empty(PriorVec6Table),
-            plane=empty(PlaneTable), imu=empty(ImuTable),
-            projection=empty(ProjectionTable),
-            prior_point=empty(PriorPointTable),
-        )
+        graph = FactorGraph(*(
+            _freeze(typ, self._rows[name], bucket, device, dtype)
+            for name, typ in TABLE_TYPES.items()))
         return graph, values

@@ -6,9 +6,12 @@ indices, measurement, square-root information, robust parameters and an
 ``active`` mask. Error convention matches GTSAM: factor error =
 0.5 * ||whitened||^2 (or the Huber loss of the whitened norm).
 
-Ported: ``PriorPoseTable`` and ``BetweenPoseTable`` with their closed-form
-linearizations. The other six tables exist with their fields so a
-``FactorGraph`` has the reference's shape; they must have capacity 0, and
+Ported: the pose prior and between tables (closed-form linearizations),
+the velocity and bias priors (closed form, J = S) and the CombinedImuFactor
+table (closed-form 30-column Jacobian, held to ``torch.func.jacfwd`` and
+to the reference's autodiff Jacobian by the tests). The plane, projection
+and point-prior tables exist with their fields so a ``FactorGraph`` has
+the reference's shape; they must have capacity 0, and
 ``total_error``/``linearize_blocks`` raise ``NotImplementedError`` on one
 that does not.
 """
@@ -19,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import se3
+from ..core import se3, so3
 from ..device import resolve
 from ..noise.models import ROBUST_HUBER, huber_weight
 from .variables import VariableArena, layout_of
@@ -36,6 +39,9 @@ __all__ = [
     "FactorGraph",
     "total_error",
     "linearize_blocks",
+    "empty_table",
+    "empty_graph",
+    "TABLE_TYPES",
 ]
 
 Tensor = torch.Tensor
@@ -149,9 +155,6 @@ class FactorGraph(NamedTuple):
 
 # The ROADMAP item that ports each table that is not ported yet.
 _NOT_PORTED = {
-    "prior_vel": "B (VIO scan engine)",
-    "prior_bias": "B (VIO scan engine)",
-    "imu": "B (VIO scan engine)",
     "plane": "C (plane rescue)",
     "projection": "D (bundle adjustment)",
     "prior_point": "D (bundle adjustment)",
@@ -163,8 +166,7 @@ def _check_ported(graph: FactorGraph):
         if getattr(graph, name)[0].shape[0]:
             raise NotImplementedError(
                 f"factor table {name!r} is not ported yet (ROADMAP item "
-                f"{item}); only prior_pose and between tables may be "
-                f"non-empty")
+                f"{item})")
 
 
 # ---------------------------------------------------------------------------
@@ -188,8 +190,9 @@ def _row_loss(r, kind, k):
     return torch.where(kind == ROBUST_HUBER, hub, quad)
 
 
-def _whiten(S, e):
-    return (S @ e[..., None])[..., 0]
+def _mv(A, x):
+    """Batched matrix-vector product ``A @ x`` (whitening: ``S @ e``)."""
+    return (A @ x[..., None])[..., 0]
 
 
 def _prior_pose_residual(values: VariableArena, table: PriorPoseTable):
@@ -205,7 +208,7 @@ def _between_parts(values: VariableArena, table: BetweenPoseTable):
 
 
 def _table_loss(table, e):
-    r = _whiten(table.sqrt_info, e)
+    r = _mv(table.sqrt_info, e)
     losses = _row_loss(r, table.robust_kind, table.robust_k)
     return torch.sum(torch.where(table.active, losses,
                                  torch.zeros_like(losses)))
@@ -218,7 +221,7 @@ def _prior_pose_lin(values: VariableArena, table: PriorPoseTable):
     """
     e = _prior_pose_residual(values, table)
     J = table.sqrt_info @ se3.right_jacobian_inverse(e)
-    r = _whiten(table.sqrt_info, e)
+    r = _mv(table.sqrt_info, e)
     s = _robust_scale(r, table.robust_kind, table.robust_k)
     mask = table.active.to(r.dtype) * s
     return r * mask[:, None], J * mask[:, None, None]
@@ -235,8 +238,146 @@ def _between_lin(values: VariableArena, table: BetweenPoseTable):
     Jri = se3.right_jacobian_inverse(e)
     Ji = -Jri @ se3.adjoint(se3.inverse(h))
     S = table.sqrt_info
-    r = _whiten(S, e)
+    r = _mv(S, e)
     J = torch.cat([S @ Ji, S @ Jri], dim=-1)  # (F, 6, 12)
+    s = _robust_scale(r, table.robust_kind, table.robust_k)
+    mask = table.active.to(r.dtype) * s
+    return r * mask[:, None], J * mask[:, None, None]
+
+
+def _prior_vec_lin(table, x):
+    """Closed-form linearization of a vector prior: e = x + delta - mean,
+    so J = S exactly."""
+    r = _mv(table.sqrt_info, x[table.idx] - table.mean)
+    s = _robust_scale(r, table.robust_kind, table.robust_k)
+    mask = table.active.to(r.dtype) * s
+    return r * mask[:, None], table.sqrt_info * mask[:, None, None]
+
+
+class _ImuRows(NamedTuple):
+    """The states and measurement fields one IMU row reads, gathered."""
+
+    Ri: Tensor
+    ti: Tensor
+    vi: Tensor
+    bi: Tensor
+    Rj: Tensor
+    tj: Tensor
+    vj: Tensor
+    bj: Tensor
+    dR: Tensor
+    dp: Tensor
+    dv: Tensor
+    H_R_bg: Tensor
+    H_p_ba: Tensor
+    H_p_bg: Tensor
+    H_v_ba: Tensor
+    H_v_bg: Tensor
+    bias_hat: Tensor
+    dt: Tensor
+    gravity: Tensor
+
+
+def _imu_rows(values: VariableArena, table: ImuTable) -> _ImuRows:
+    i, j = table.i, table.j
+    return _ImuRows(
+        values.pose_R[i], values.pose_t[i], values.vel[i], values.bias[i],
+        values.pose_R[j], values.pose_t[j], values.vel[j], values.bias[j],
+        table.dR, table.dp, table.dv, table.H_R_bg, table.H_p_ba,
+        table.H_p_bg, table.H_v_ba, table.H_v_bg, table.bias_hat, table.dt,
+        table.gravity)
+
+
+class _ImuParts(NamedTuple):
+    """The residual at the gathered states and what its Jacobian reuses."""
+
+    e: Tensor       # (..., 15) [r_R, r_p, r_v, r_ba, r_bg]
+    E: Tensor       # (..., 3, 3) dR~^T Ri^T Rj, r_R = Log(E)
+    phi: Tensor     # (..., 3) H_R_bg dbg, dR~ = dR Exp(phi)
+    RiT: Tensor     # (..., 3, 3)
+    a_p: Tensor     # (..., 3) tj - ti - vi T - g T^2 / 2
+    a_v: Tensor     # (..., 3) vj - vi - g T
+
+
+def _imu_parts(g: _ImuRows) -> _ImuParts:
+    """CombinedImuFactor residual (Forster) at the gathered states, with
+    bias-corrected deltas by first-order Jacobians around ``bias_hat``."""
+    db = g.bi - g.bias_hat
+    dba, dbg = db[..., :3], db[..., 3:]
+    phi = _mv(g.H_R_bg, dbg)
+    dR = g.dR @ so3.expmap(phi)
+    dv = g.dv + _mv(g.H_v_ba, dba) + _mv(g.H_v_bg, dbg)
+    dp = g.dp + _mv(g.H_p_ba, dba) + _mv(g.H_p_bg, dbg)
+
+    T = g.dt[..., None]
+    RiT = g.Ri.transpose(-1, -2)
+    E = dR.transpose(-1, -2) @ (RiT @ g.Rj)
+    a_p = g.tj - g.ti - g.vi * T - 0.5 * g.gravity * T * T
+    a_v = g.vj - g.vi - g.gravity * T
+    e = torch.cat([so3.logmap(E), _mv(RiT, a_p) - dp, _mv(RiT, a_v) - dv,
+                   g.bj - g.bi], dim=-1)
+    return _ImuParts(e, E, phi, RiT, a_p, a_v)
+
+
+def _imu_residual(g: _ImuRows, delta):
+    """The IMU residual at the tangent step ``delta`` (..., 30), ordered
+    X_i, v_i, b_i, X_j, v_j, b_j (poses by the expmap retraction)."""
+    Xi = se3.retract(se3.Pose(g.Ri, g.ti), delta[..., 0:6])
+    Xj = se3.retract(se3.Pose(g.Rj, g.tj), delta[..., 15:21])
+    return _imu_parts(g._replace(
+        Ri=Xi.R, ti=Xi.t, vi=g.vi + delta[..., 6:9],
+        bi=g.bi + delta[..., 9:15], Rj=Xj.R, tj=Xj.t,
+        vj=g.vj + delta[..., 21:24], bj=g.bj + delta[..., 24:30])).e
+
+
+def _imu_jacobian(g: _ImuRows, p: _ImuParts):
+    """Closed-form (F, 15, 30) Jacobian of the IMU residual at delta = 0.
+
+    With r_R = Log(E) and Jr^-1 its inverse right Jacobian, under the
+    expmap retractions (rotation perturbed on the right, translation by
+    R v):
+      d r_R / d w_i = -Jr^-1 Rj^T Ri,   d r_R / d w_j = Jr^-1,
+      d r_R / d bg  = -Jr^-1 E^T Jr(phi) H_R_bg;
+      d r_p / d w_i = [Ri^T a_p]x, d r_p / d v_i = -I, d r_p / d vel_i =
+      -Ri^T T, d r_p / d v_j = Ri^T Rj, d r_p / d b_i = -H_p;
+      d r_v / d w_i = [Ri^T a_v]x, d r_v / d vel_i = -Ri^T,
+      d r_v / d vel_j = Ri^T, d r_v / d b_i = -H_v;
+      d r_b / d b_i = -I, d r_b / d b_j = I.
+    ``tests/test_torch_imu.py`` holds it to ``torch.func.jacfwd`` of
+    ``_imu_residual`` and to the reference's autodiff Jacobian.
+    """
+    Jri = so3.left_jacobian_inverse(-p.e[..., 0:3])
+    T = g.dt[..., None, None]
+    I3 = torch.eye(3, dtype=T.dtype, device=T.device)
+    J = torch.zeros(*p.e.shape[:-1], 15, 30, dtype=T.dtype, device=T.device)
+    J[..., 0:3, 0:3] = -Jri @ g.Rj.transpose(-1, -2) @ g.Ri
+    J[..., 0:3, 12:15] = (-Jri @ p.E.transpose(-1, -2)
+                          @ so3.left_jacobian(-p.phi) @ g.H_R_bg)
+    J[..., 0:3, 15:18] = Jri
+    J[..., 3:6, 0:3] = so3.hat(_mv(p.RiT, p.a_p))
+    J[..., 3:6, 3:6] = -I3
+    J[..., 3:6, 6:9] = -p.RiT * T
+    J[..., 3:6, 9:12] = -g.H_p_ba
+    J[..., 3:6, 12:15] = -g.H_p_bg
+    J[..., 3:6, 18:21] = p.RiT @ g.Rj
+    J[..., 6:9, 0:3] = so3.hat(_mv(p.RiT, p.a_v))
+    J[..., 6:9, 6:9] = -p.RiT
+    J[..., 6:9, 9:12] = -g.H_v_ba
+    J[..., 6:9, 12:15] = -g.H_v_bg
+    J[..., 6:9, 21:24] = p.RiT
+    I6 = torch.eye(6, dtype=T.dtype, device=T.device)
+    J[..., 9:15, 9:15] = -I6
+    J[..., 9:15, 24:30] = I6
+    return J
+
+
+def _imu_lin(values: VariableArena, table: ImuTable):
+    """Whitened IMU rows and their closed-form (F, 15, 30) Jacobians."""
+    rows = _imu_rows(values, table)
+    parts = _imu_parts(rows)
+    S = table.sqrt_info
+    r = _mv(S, parts.e)
+    J = S @ _imu_jacobian(rows, parts)
     s = _robust_scale(r, table.robust_kind, table.robust_k)
     mask = table.active.to(r.dtype) * s
     return r * mask[:, None], J * mask[:, None, None]
@@ -252,6 +393,13 @@ def total_error(graph: FactorGraph, values: VariableArena):
     if graph.between.i.shape[0]:
         e = e + _table_loss(graph.between,
                             _between_parts(values, graph.between)[1])
+    for name, x in (("prior_vel", values.vel), ("prior_bias", values.bias)):
+        tb = getattr(graph, name)
+        if tb.idx.shape[0]:
+            e = e + _table_loss(tb, x[tb.idx] - tb.mean)
+    if graph.imu.i.shape[0]:
+        e = e + _table_loss(graph.imu,
+                            _imu_parts(_imu_rows(values, graph.imu)).e)
     return e
 
 
@@ -272,6 +420,19 @@ def linearize_blocks(graph: FactorGraph, values: VariableArena):
         cols = torch.cat([lay.pose_cols(graph.between.i),
                           lay.pose_cols(graph.between.j)], dim=-1)
         blocks.append((r, J, cols))
+    if graph.prior_vel.idx.shape[0]:
+        r, J = _prior_vec_lin(graph.prior_vel, values.vel)
+        blocks.append((r, J, lay.vel_cols(graph.prior_vel.idx)))
+    if graph.prior_bias.idx.shape[0]:
+        r, J = _prior_vec_lin(graph.prior_bias, values.bias)
+        blocks.append((r, J, lay.bias_cols(graph.prior_bias.idx)))
+    if graph.imu.i.shape[0]:
+        r, J = _imu_lin(values, graph.imu)
+        i, j = graph.imu.i, graph.imu.j
+        cols = torch.cat([lay.pose_cols(i), lay.vel_cols(i), lay.bias_cols(i),
+                          lay.pose_cols(j), lay.vel_cols(j), lay.bias_cols(j)],
+                         dim=-1)
+        blocks.append((r, J, cols))
     return blocks
 
 
@@ -280,6 +441,8 @@ def linearize_blocks(graph: FactorGraph, values: VariableArena):
 
 
 _FLOAT_SHAPES = {
+    PriorPoseTable: {"mean_R": (3, 3), "mean_t": (3,), "sqrt_info": (6, 6)},
+    BetweenPoseTable: {"meas_R": (3, 3), "meas_t": (3,), "sqrt_info": (6, 6)},
     PriorVec3Table: {"mean": (3,), "sqrt_info": (3, 3)},
     PriorVec6Table: {"mean": (6,), "sqrt_info": (6, 6)},
     PlaneTable: {"meas": (4,), "sqrt_info": (3, 3)},
@@ -291,19 +454,47 @@ _FLOAT_SHAPES = {
                       "body_t": (3,), "sqrt_info": (2, 2)},
     PriorPointTable: {"mean": (3,), "sqrt_info": (3, 3)},
 }
+_ROTATIONS = ("mean_R", "meas_R", "dR", "body_R")
+# each FactorGraph field's table type, in field order
+TABLE_TYPES = dict(zip(FactorGraph._fields, _FLOAT_SHAPES))
 
 
-def empty_table(table_type, *, dtype=torch.float64, device=None):
-    """A capacity-0 table of one of the six types not ported yet."""
+def empty_table(table_type, cap: int = 0, *, dtype=torch.float64,
+                device=None):
+    """A table of ``cap`` inactive rows with the reference's benign
+    defaults: identity rotations, unit ``dt`` and robust ``k``, the plane
+    measurement (0, 0, 1, 0), unit focal lengths, zero sqrt-information."""
     device = resolve(device)
     shapes = _FLOAT_SHAPES[table_type]
     fields = {}
     for name in table_type._fields:
         if name == "active":
-            fields[name] = torch.zeros(0, dtype=torch.bool, device=device)
-        elif name == "robust_k" or name in shapes:
-            fields[name] = torch.zeros(0, *shapes.get(name, ()), dtype=dtype,
+            fields[name] = torch.zeros(cap, dtype=torch.bool, device=device)
+        elif name in _ROTATIONS:
+            fields[name] = torch.eye(3, dtype=dtype, device=device).repeat(
+                cap, 1, 1)
+        elif name in ("robust_k", "dt"):
+            fields[name] = torch.ones(cap, dtype=dtype, device=device)
+        elif name in shapes:
+            fields[name] = torch.zeros((cap, *shapes[name]), dtype=dtype,
                                        device=device)
         else:
-            fields[name] = torch.zeros(0, dtype=torch.int64, device=device)
+            fields[name] = torch.zeros(cap, dtype=torch.int64, device=device)
+    if table_type is PlaneTable:
+        fields["meas"][:, 2] = 1.0
+    if table_type is ProjectionTable:
+        fields["cal"][:, :2] = 1.0
     return table_type(**fields)
+
+
+def empty_graph(prior_pose_cap=0, between_cap=0, prior_vel_cap=0,
+                prior_bias_cap=0, plane_cap=0, imu_cap=0, projection_cap=0,
+                prior_point_cap=0, *, dtype=torch.float64,
+                device=None) -> FactorGraph:
+    """A ``FactorGraph`` of empty tables at the given capacities, on
+    ``device`` (``None``: the CUDA card)."""
+    device = resolve(device)
+    caps = (prior_pose_cap, between_cap, prior_vel_cap, prior_bias_cap,
+            plane_cap, imu_cap, projection_cap, prior_point_cap)
+    return FactorGraph(*(empty_table(typ, cap, dtype=dtype, device=device)
+                         for typ, cap in zip(TABLE_TYPES.values(), caps)))

@@ -1,0 +1,291 @@
+"""Online graph engine: preallocated arenas + in-place row writes (port of
+the parts of ``graph/online.py`` that the VIO scan engine runs).
+
+The arenas are allocated at capacity once; every "add" writes rows of
+the preallocated tensors in place and bumps a host-side slot counter, so
+nothing changes shape while the trajectory grows. Row writes take Python
+ints or slices for slots, and Python scalars (filled on the device, as
+kernel arguments) or device tensors for values, so writing rows on the
+card issues no host sync.
+
+``windowed_gn`` is the compact fixed-lag Gauss–Newton step: the whitened
+Jacobian rows of a suffix window are scattered through a column map into a
+stacked matrix of the window's width and the damped least squares is
+solved by QR (cuSOLVER on the card).
+
+Not ported yet (ROADMAP item C, with the online engine):
+``IncrementalOptimizer``, ``grow``, ``save_state``/``load_state`` and the
+plane appenders.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import se3
+from .factors import FactorGraph, linearize_blocks, total_error
+from .variables import VariableArena, layout_of, retract_all, used_slot_mask
+
+__all__ = ["OnlineGraph", "window_graph", "windowed_gn", "between_row",
+           "imu_row"]
+
+# factor-table field order used for window starts/caps
+_TABLES = FactorGraph._fields
+
+
+def _put(col, slot, value):
+    """``col[slot] = value`` in place. A Python scalar is filled on the
+    device: assigning one stages it through a host-to-device copy, which
+    waits for the card."""
+    if isinstance(value, torch.Tensor):
+        col[slot] = value
+    else:
+        col[slot].fill_(value)
+
+
+def between_row(tb, slot, i, j, R, t, sqrt_info, robust_kind, robust_k,
+                active=True):
+    """Write between rows in place: ``slot`` an int (one row) or a slice
+    (rows from batched values); returns the table."""
+    for col, value in ((tb.i, i), (tb.j, j), (tb.meas_R, R), (tb.meas_t, t),
+                       (tb.sqrt_info, sqrt_info),
+                       (tb.robust_kind, robust_kind),
+                       (tb.robust_k, robust_k), (tb.active, active)):
+        _put(col, slot, value)
+    return tb
+
+
+def imu_row(tb, slot, i, j, dR, dp, dv, H_R_bg, H_p_ba, H_p_bg, H_v_ba,
+            H_v_bg, bias_hat, dt, gravity, cov, active=True):
+    """Write IMU rows in place (``slot`` an int or a slice, as in
+    ``between_row``), whitened on the device by the inverse Cholesky factor
+    of each 15x15 covariance; returns the table.
+
+    ``cholesky_ex`` leaves its status flag on the device (``cholesky``
+    would read it back); a covariance that is not positive definite gives
+    a NaN factor, as the reference's Cholesky does.
+    """
+    C = 0.5 * (cov + cov.transpose(-1, -2))
+    L, _ = torch.linalg.cholesky_ex(C)
+    S = torch.linalg.solve_triangular(
+        L, torch.eye(15, dtype=cov.dtype, device=cov.device), upper=False)
+    for col, value in ((tb.i, i), (tb.j, j), (tb.dR, dR), (tb.dp, dp),
+                       (tb.dv, dv), (tb.H_R_bg, H_R_bg),
+                       (tb.H_p_ba, H_p_ba), (tb.H_p_bg, H_p_bg),
+                       (tb.H_v_ba, H_v_ba), (tb.H_v_bg, H_v_bg),
+                       (tb.bias_hat, bias_hat), (tb.dt, dt),
+                       (tb.gravity, gravity), (tb.sqrt_info, S),
+                       (tb.active, active)):
+        _put(col, slot, value)
+    return tb
+
+
+class OnlineGraph:
+    """Mutable facade over the arenas with host-side slot counters.
+
+    Every method writes rows of the preallocated tensors in place; the
+    graph's and the values' shapes never change.
+    """
+
+    def __init__(self, graph: FactorGraph, values: VariableArena):
+        self.graph = graph
+        self.values = values
+        self._n = {"prior_pose": 0, "between": 0, "prior_vel": 0,
+                   "prior_bias": 0, "plane": 0, "imu": 0}
+        self.num_poses = int(values.num_poses)
+        self.num_vels = int(values.num_vels)
+        self.num_biases = int(values.num_biases)
+
+    def _t(self, x):
+        """A value on the arena's device and dtype."""
+        v = self.values.pose_t
+        return torch.as_tensor(x, device=v.device).to(v.dtype)
+
+    # -- variables ------------------------------------------------------
+    def set_pose(self, idx: int, pose: se3.Pose, new: bool = True):
+        self.values.pose_R[idx] = self._t(pose.R)
+        self.values.pose_t[idx] = self._t(pose.t)
+        self.values.num_poses.clamp_(min=idx + int(new))
+        if new:
+            self.num_poses = max(self.num_poses, idx + 1)
+
+    def set_vel(self, idx: int, v, new: bool = True):
+        self.values.vel[idx] = self._t(v)
+        self.values.num_vels.clamp_(min=idx + int(new))
+        if new:
+            self.num_vels = max(self.num_vels, idx + 1)
+
+    def set_bias(self, idx: int, b, new: bool = True):
+        self.values.bias[idx] = self._t(b)
+        self.values.num_biases.clamp_(min=idx + int(new))
+        if new:
+            self.num_biases = max(self.num_biases, idx + 1)
+
+    # -- factors ----------------------------------------------------------
+    def _slot(self, key: str, cap: int) -> int:
+        s = self._n[key]
+        if s >= cap:
+            raise RuntimeError(
+                f"factor arena '{key}' full ({cap}); rebuild with larger "
+                "capacity")
+        self._n[key] = s + 1
+        return s
+
+    def _add_prior(self, key, idx, mean, sqrt_info):
+        tb = getattr(self.graph, key)
+        s = self._slot(key, tb.idx.shape[0])
+        _put(tb.idx, s, idx)
+        tb.mean[s] = self._t(mean)
+        tb.sqrt_info[s] = self._t(sqrt_info)
+        _put(tb.active, s, True)
+
+    def add_prior_pose(self, idx, pose: se3.Pose, sqrt_info):
+        tb = self.graph.prior_pose
+        s = self._slot("prior_pose", tb.idx.shape[0])
+        _put(tb.idx, s, idx)
+        tb.mean_R[s] = self._t(pose.R)
+        tb.mean_t[s] = self._t(pose.t)
+        tb.sqrt_info[s] = self._t(sqrt_info)
+        _put(tb.active, s, True)
+
+    def add_prior_vel(self, idx, mean, sqrt_info):
+        self._add_prior("prior_vel", idx, mean, sqrt_info)
+
+    def add_prior_bias(self, idx, mean, sqrt_info):
+        self._add_prior("prior_bias", idx, mean, sqrt_info)
+
+    def add_between(self, i, j, meas: se3.Pose, sqrt_info, robust=None):
+        s = self._slot("between", self.graph.between.i.shape[0])
+        between_row(self.graph.between, s, i, j, self._t(meas.R),
+                    self._t(meas.t), self._t(sqrt_info),
+                    0 if robust is None else 1,
+                    1.0 if robust is None else float(robust))
+
+    def add_imu_factor(self, i, j, preint, gravity):
+        s = self._slot("imu", self.graph.imu.i.shape[0])
+        p = preint
+        imu_row(self.graph.imu, s, i, j, *(self._t(x) for x in (
+            p.dR, p.dp, p.dv, p.H_R_bg, p.H_p_ba, p.H_p_bg, p.H_v_ba,
+            p.H_v_bg, p.bias_hat, p.dt, gravity, p.cov)))
+
+    # -- queries ----------------------------------------------------------
+    def pose(self, idx: int) -> se3.Pose:
+        return se3.Pose(self.values.pose_R[idx], self.values.pose_t[idx])
+
+    def error(self) -> float:
+        return float(total_error(self.graph, self.values))
+
+
+def window_graph(graph: FactorGraph, starts, caps) -> FactorGraph:
+    """Suffix-window view of a factor graph.
+
+    Factors are appended in time order, so the factors touching the most
+    recent poses are a suffix of each table. ``starts`` holds per-table
+    slice starts and ``caps`` window capacities (``_TABLES`` order, host
+    ints); each table is sliced to ``min(cap, table capacity)`` rows from
+    its start clipped into range, exactly as the reference's
+    ``dynamic_slice``. The result is views.
+    """
+    out = []
+    for k, tb in enumerate(graph):
+        cap = tb[0].shape[0]
+        size = min(caps[k], cap)
+        s = min(max(int(starts[k]), 0), cap - size)
+        out.append(type(tb)(*(x[s:s + size] for x in tb)))
+    return FactorGraph(*out)
+
+
+def _free_mask(values: VariableArena, free_from):
+    """Tangent-dim update mask: variable index >= free_from[kind] is free.
+
+    ``free_from`` holds five host ints (pose, vel, bias, plane, point);
+    frozen variables act as constants in the fixed-lag step.
+    """
+    lay = layout_of(values)
+    dev = values.pose_t.device
+
+    def block(cap, lo, width):
+        return torch.repeat_interleave(torch.arange(cap, device=dev) >= lo,
+                                       width)
+
+    return torch.cat([
+        block(lay.pose_cap, free_from[0], 6),
+        block(lay.vel_cap, free_from[1], 3),
+        block(lay.bias_cap, free_from[2], 6),
+        block(lay.plane_cap, free_from[3], 3),
+        block(lay.point_cap, free_from[4], 3),
+    ])
+
+
+def windowed_gn(win: FactorGraph, values: VariableArena, free_from, wcaps,
+                damping, iterations: int = 1):
+    """Compact fixed-lag GN: solve only the free window's tangent dims.
+
+    Absolute tangent columns inside the window map to compact columns of a
+    width ``Dw = 6 Wp + 3 Wv + 6 Wb + 3 plane_cap + 3 point_cap``;
+    frozen/out-of-window columns map to one trash column that is sliced off
+    before the solve, which is exactly "treat that variable as a constant".
+    The damped least squares is solved in square-root form (QR of the
+    stacked whitened rows, damping and unused-dim anchoring as extra rows),
+    never by forming JᵀJ.
+
+    ``wcaps = (Wp, Wv, Wb)`` are the pose/vel/bias window capacities;
+    ``free_from`` the first free variable index per kind (host ints; planes
+    and points are always fully free). Returns ``(values, window chi2)``,
+    the chi2 a 0-d tensor on the device.
+    """
+    lay = layout_of(values)
+    dtype, dev = values.pose_t.dtype, values.pose_t.device
+    Wp = min(wcaps[0], lay.pose_cap)
+    Wv = min(wcaps[1], lay.vel_cap)
+    Wb = min(wcaps[2], lay.bias_cap)
+    Dw = 6 * Wp + 3 * Wv + 6 * Wb + 3 * lay.plane_cap + 3 * lay.point_cap
+    trash = Dw
+
+    def kind_cmap(cap, width, lo, Wk, base):
+        rel = torch.arange(cap, device=dev) - int(lo)
+        ok = (rel >= 0) & (rel < Wk)
+        cols = base + rel[:, None] * width + torch.arange(width, device=dev)
+        return torch.where(ok[:, None], cols, trash).reshape(-1)
+
+    cmap = torch.cat([
+        kind_cmap(lay.pose_cap, 6, free_from[0], Wp, 0),
+        kind_cmap(lay.vel_cap, 3, free_from[1], Wv, 6 * Wp),
+        kind_cmap(lay.bias_cap, 6, free_from[2], Wb, 6 * Wp + 3 * Wv),
+        kind_cmap(lay.plane_cap, 3, 0, lay.plane_cap,
+                  6 * Wp + 3 * Wv + 6 * Wb),
+        kind_cmap(lay.point_cap, 3, 0, lay.point_cap,
+                  6 * Wp + 3 * Wv + 6 * Wb + 3 * lay.plane_cap),
+    ])
+    zero1 = torch.zeros(1, dtype=dtype, device=dev)
+
+    for _ in range(iterations):
+        # compact used mask (live variables only, from the current arena)
+        uw = torch.zeros(Dw + 1, dtype=dtype, device=dev).scatter_reduce_(
+            0, cmap, used_slot_mask(values), "amax")[:Dw]
+        blocks = linearize_blocks(win, values)
+        # every block's rows stacked: one (F*e, Dw+1) matrix, filled by one
+        # accumulating scatter (only the trash column can take duplicates)
+        rows, cols, vals, rhs = [], [], [], []
+        base = 0
+        for r, J, bcols in blocks:
+            F, e, td = J.shape
+            ridx = base + torch.arange(F * e, device=dev).reshape(F, e)
+            rows.append(ridx[:, :, None].expand(F, e, td).reshape(-1))
+            cols.append(cmap[bcols][:, None, :].expand(F, e, td).reshape(-1))
+            vals.append(J.reshape(-1))
+            rhs.append(r.reshape(-1))
+            base += F * e
+        A = torch.zeros(base, Dw + 1, dtype=dtype, device=dev)
+        A.index_put_((torch.cat(rows), torch.cat(cols)), torch.cat(vals),
+                     accumulate=True)
+        # damping + unused-dim anchoring as extra rows:
+        # (J^T J + diag(lam + (1 - uw))) delta = -J^T r
+        A = torch.cat([A[:, :Dw] * uw, torch.diag(torch.sqrt(
+            damping + (1.0 - uw)))], dim=0)
+        b = torch.cat(rhs + [torch.zeros(Dw, dtype=dtype, device=dev)])
+        Q, R = torch.linalg.qr(A, mode="reduced")
+        delta_w = torch.linalg.solve_triangular(
+            R, -(Q.transpose(0, 1) @ b)[:, None], upper=True)[:, 0]
+        values = retract_all(values, torch.cat([delta_w, zero1])[cmap])
+    return values, total_error(win, values)

@@ -77,6 +77,14 @@ class TangentLayout(NamedTuple):
         return self.pose_off + 6 * idx[..., None] + torch.arange(
             6, device=idx.device)
 
+    def vel_cols(self, idx):
+        return self.vel_off + 3 * idx[..., None] + torch.arange(
+            3, device=idx.device)
+
+    def bias_cols(self, idx):
+        return self.bias_off + 6 * idx[..., None] + torch.arange(
+            6, device=idx.device)
+
 
 def layout_of(values: VariableArena) -> TangentLayout:
     return TangentLayout(

@@ -2,6 +2,7 @@
 
 from .posegraph import (PoseGraphResult, build_pose_graph, run_pose_graph,
                         trajectory_arrays)
+from .vio import VioConfig, VioResult, run_vio
 
 __all__ = ["PoseGraphResult", "build_pose_graph", "run_pose_graph",
-           "trajectory_arrays"]
+           "trajectory_arrays", "VioConfig", "VioResult", "run_vio"]

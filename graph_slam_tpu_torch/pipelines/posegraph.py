@@ -3,15 +3,17 @@
 
 1. the first node gets a near-exact pose prior (sigma 1e-7);
 2. every odometry record creates the next node, its initial estimate
-   composed from the predecessor;
+   composed from the predecessor; with a camera->IMU extrinsic ``u2c`` the
+   edge is taken to the body frame, ``T' = U T U^-1``, and its information
+   by the adjoint, ``Ad_U info Ad_U^T``;
 3. a *failed* record (info sentinel 10000) becomes an identity edge with
-   information I*1e4 when it creates a node, and is skipped when both of
-   its endpoints exist;
+   information I*1e4 (by the adjoint too under ``u2c``) when it creates a
+   node, and is skipped when both of its endpoints exist;
 4. records whose both endpoints already exist are loop closures;
 5. Levenberg–Marquardt (or fixed-trip Gauss–Newton) batch optimization.
 
 Ported: ``init="odometry"``, ``backend="gtsam"``, ``robust`` None or
-``"huber"``, no loop gate, no camera-to-IMU conjugation. The rest raises
+``"huber"``, no loop gate, ``u2c``. The rest raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -46,9 +48,14 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
 
 
+def _host_pose(p):
+    return se3.Pose(torch.as_tensor(p.R).detach().cpu().double(),
+                    torch.as_tensor(p.t).detach().cpu().double())
+
+
 def build_pose_graph(log: VROLog, params: SlamParams = SlamParams(),
                      bucket: int = 256, backend: str = "gtsam", *,
-                     device=None, dtype=torch.float64):
+                     u2c=None, device=None, dtype=torch.float64):
     """VRO log -> (FactorGraph, VariableArena, seq_ids) on ``device``
     (``None``: the CUDA card).
 
@@ -68,8 +75,17 @@ def build_pose_graph(log: VROLog, params: SlamParams = SlamParams(),
 
     xi = torch.as_tensor(np.asarray(log.xi, np.float64).reshape(-1, 6))
     T_all = se3.expmap(xi)
-    TR, Tt = T_all.R.numpy(), T_all.t.numpy()
     fake_info = np.eye(6) * FAILED_INFO_SENTINEL
+    infos = np.asarray(log.info, np.float64)
+    if u2c is not None:
+        # every edge conjugated at once; fakeOdo information too, as the
+        # reference's addToGTSAM conjugates it unconditionally
+        u = _host_pose(u2c)
+        T_all = se3.compose(se3.compose(u, T_all), se3.inverse(u))
+        Ad = se3.adjoint(u).numpy()
+        infos = np.einsum("ab,kbc,dc->kad", Ad, infos, Ad)
+        fake_info = Ad @ fake_info @ Ad.T
+    TR, Tt = T_all.R.numpy(), T_all.t.numpy()
 
     for k in range(len(log)):
         id_to = int(log.id_to[k])
@@ -88,7 +104,7 @@ def build_pose_graph(log: VROLog, params: SlamParams = SlamParams(),
             # fakeOdoNode: identity transform, information I*1e4
             R, t, info = np.eye(3), np.zeros(3), fake_info
         else:
-            R, t, info = TR[k], Tt[k], log.info[k]
+            R, t, info = TR[k], Tt[k], infos[k]
 
         if id_to not in seq2graph:
             Ri, ti = b.pose(gi)
@@ -108,7 +124,7 @@ def build_pose_graph(log: VROLog, params: SlamParams = SlamParams(),
 def run_pose_graph(log: VROLog, params: SlamParams = SlamParams(),
                    lm_params: LMParams = LMParams(), bucket: int = 256,
                    backend: str = "gtsam", init: str = "odometry",
-                   loop_gate: str = "none", *, device=None,
+                   loop_gate: str = "none", *, u2c=None, device=None,
                    dtype=torch.float64) -> PoseGraphResult:
     if loop_gate == "pcm":
         raise _not_ported("loop_gate='pcm'", "E (graph/pcm.py)")
@@ -121,8 +137,8 @@ def run_pose_graph(log: VROLog, params: SlamParams = SlamParams(),
     if params.robust in ("gnc-tls", "gnc-gm"):
         raise _not_ported(f"robust={params.robust!r}", "E (graph/gnc.py)")
     graph, values, seq_ids = build_pose_graph(log, params, bucket=bucket,
-                                              backend=backend, device=device,
-                                              dtype=dtype)
+                                              backend=backend, u2c=u2c,
+                                              device=device, dtype=dtype)
     e0 = float(total_error(graph, values))
     if params.optimizer == "gn":
         res = gn_optimize(graph, values, iterations=params.optimize_step)

@@ -1,0 +1,308 @@
+"""The whole-replay VIO engine (``engine="scan"``; port of
+``pipelines/vio_scan.py`` without the plane rescue).
+
+The graph's structure (slots, ids, failure flags, the optimize schedule,
+window starts) is precomputed on the host from the log, and the records'
+values (IMU windows, edges, sqrt-information, row indices) go to the
+device once. The replay is then a host loop over segments: the records up
+to and including the next scheduled optimization. The feedback bias only
+changes at an optimization, so a segment's windows are preintegrated in
+one batch and its between and IMU rows written at once (the optimization
+that closes the segment is the first reader of those rows); the pose chain
+runs record by record (``_vio_frame_kernel``), then the fixed-lag
+``windowed_gn`` feeds the last frame's state back. The reference compiles
+the same replay into chunked ``lax.scan`` programs; here every branch is
+host-known and nothing is compiled, so no chunk padding is needed. The
+window chi2 of each optimization stays on the device and is read once at
+the end, so the replay itself makes no host sync.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import se3
+from ..graph import LMParams, lm_optimize, total_error
+from ..graph.builder import _sqrt_info, round_up
+from ..graph.factors import empty_graph
+from ..graph.online import (OnlineGraph, _TABLES, between_row, imu_row,
+                            window_graph, windowed_gn)
+from ..graph.variables import empty_arena
+from ..imu import ImuParams, ImuStream, PreintState, find_index_at
+from ..io.vro_log import FAILED_INFO_SENTINEL, VROLog
+from ..utils.profiling import Chi2Log, PhaseTimer, trace_context
+from .vio_kernel import (_conjugate_edges_batch, _expmap_batch, _pad_window,
+                         _preintegrate, _static_init, _vio_frame_kernel)
+from .vio_types import VioConfig, VioResult
+
+__all__ = ["_run_vio_scan", "_replay_scan", "_window_caps",
+           "_window_starts"]
+
+# record fields uploaded to the device once (the rest stay host-side):
+# edges by record, IMU windows by IMU slot (new frames only)
+_EDGES = ("meas_R", "meas_t", "sqrt_info")
+_WINDOWS = ("acc", "gyr", "dts")
+
+
+def _window_caps(graph, window):
+    """Per-table row caps of the fixed-lag window (``_TABLES`` order; the
+    reference's ``current_opt_caps`` without planes): ``window`` None is
+    the whole table."""
+    want = {"between": 8 * window, "imu": window, "plane": 4 * window} \
+        if window else {}
+    return tuple(min(tb[0].shape[0], want.get(nm, tb[0].shape[0]))
+                 for nm, tb in zip(_TABLES, graph))
+
+
+def _window_starts(counts, caps):
+    """Each table's window start: its last ``caps`` rows of the ``counts``
+    rows used (a dict by table name; absent tables hold none)."""
+    return [max(0, counts.get(nm, 0) - caps[t])
+            for t, nm in enumerate(_TABLES)]
+
+
+def _replay_scan(og: OnlineGraph, xs, dev, prev, imu_params, gravity, cfg,
+                 robust_kind, robust_kval, wcaps, opt_caps):
+    """The sequential VIO replay over host-precomputed records.
+
+    ``xs`` holds the host-side structure per record (numpy); ``dev`` the
+    records' values on the device: edges and between-row indices by record,
+    IMU windows and IMU-row indices by IMU slot. Returns the feedback state
+    after the last record and ``[(record, window chi2 as a 0-d device
+    tensor)]``.
+    """
+    chi2 = []
+    n = len(xs["gj"])
+    ends = sorted(set(np.nonzero(xs["do_opt"])[0].tolist()) | {n - 1})
+    lo = 0
+    for hi in ends:
+        recs = slice(lo, hi + 1)
+        between_row(og.graph.between, recs, dev["gi"][recs], dev["gj"][recs],
+                    dev["meas_R"][recs], dev["meas_t"][recs],
+                    dev["sqrt_info"][recs], robust_kind, robust_kval,
+                    active=dev["valid"][recs])
+        new = [k for k in range(lo, hi + 1) if xs["is_new"][k]]
+        if new:
+            # consecutive IMU slots, one bias estimate: one batch
+            s0, s1 = int(xs["imu_slot"][new[0]]), int(xs["imu_slot"][new[-1]])
+            slots = slice(s0, s1 + 1)
+            st = _preintegrate(prev[3].expand(s1 + 1 - s0, 6), imu_params,
+                               dev["acc"][slots], dev["gyr"][slots],
+                               dev["dts"][slots])
+            imu_row(og.graph.imu, slots, dev["imu_i"][slots],
+                    dev["imu_j"][slots], st.dR, st.dp, st.dv, st.H_R_bg,
+                    st.H_p_ba, st.H_p_bg, st.H_v_ba, st.H_v_bg, st.bias_hat,
+                    st.dt, gravity, st.cov)
+        for k in new:
+            q = int(xs["imu_slot"][k]) - s0
+            est_R, est_t, pred_vel, failed = _vio_frame_kernel(
+                og.values, PreintState(*(x[q] for x in st)), prev,
+                dev["meas_R"][k], dev["meas_t"][k], bool(xs["failed"][k]),
+                int(xs["gi"][k]), int(xs["gj"][k]), gravity,
+                cfg.chi2_vro_gate, cfg.chi2_threshold)
+            if not isinstance(failed, bool):
+                og.graph.between.active[k] = ~failed   # the gate's verdict
+            prev = (est_R, est_t, pred_vel, prev[3])
+        if xs["do_opt"][hi]:
+            win = window_graph(og.graph, xs["opt_starts"][hi], opt_caps)
+            og.values, werr = windowed_gn(
+                win, og.values, xs["free_from"][hi], wcaps, 1e-6,
+                cfg.incremental_iters)
+            j = int(xs["last_gj"][hi])
+            v = og.values
+            prev = tuple(x[j].clone() for x in (v.pose_R, v.pose_t, v.vel,
+                                                 v.bias))
+            chi2.append((hi, werr))
+        lo = hi + 1
+    return prev, chi2
+
+
+def _run_vio_scan(log: VROLog, t_of, imu: ImuStream,
+                  imu_params: ImuParams, u2c, cfg: VioConfig,
+                  lm_params: LMParams, *, device, dtype) -> VioResult:
+    """Host wrapper for ``engine="scan"`` without planes: precompute the
+    structure, replay, finalize (window chi2 read back, optional batch
+    LM)."""
+    robust_k = cfg.robust_k if cfg.robust == "huber" else None
+    Wimu = cfg.max_imu_window
+
+    if len(log) == 0:
+        raise ValueError("empty VRO log")
+    first_seq = int(log.id_from[0])
+    seq2graph = {first_seq: 0}
+    seq_ids = [first_seq]
+    if cfg.gravity_init:
+        init_R, init_bias = _static_init(imu, float(t_of(first_seq)),
+                                         imu_params, cfg.static_init_samples)
+    else:
+        init_R, init_bias = np.eye(3), np.zeros(6)
+    imu.set_start_time(float(t_of(first_seq)))
+    cur = 0
+    n_imu_rows = 0
+
+    # every edge camera->body at once on the host, in float64; the
+    # sqrt-information of the valid rows by one batched Cholesky, sentinel
+    # rows an identity fakeOdo
+    valid_mask = np.asarray(log.info[:, 0, 0] != FAILED_INFO_SENTINEL)
+    xi_all = torch.as_tensor(np.asarray(log.xi, np.float64))
+    if u2c is not None:
+        uR = u2c.R.detach().cpu().double()
+        ut = u2c.t.detach().cpu().double()
+        R_all, t_all = _conjugate_edges_batch(xi_all, uR, ut)
+        Ad = se3.adjoint(se3.Pose(uR, ut)).numpy()
+        info_all = np.einsum("ab,kbc,dc->kad", Ad,
+                             np.asarray(log.info, np.float64), Ad)
+    else:
+        R_all, t_all = _expmap_batch(xi_all)
+        info_all = np.asarray(log.info, np.float64)
+    R_all = R_all.numpy().copy()
+    t_all = t_all.numpy().copy()
+    S_all = np.tile(np.eye(6), (len(log), 1, 1))
+    if valid_mask.any():
+        S_all[valid_mask] = np.transpose(
+            np.linalg.cholesky(info_all[valid_mask]), (0, 2, 1))
+    R_all[~valid_mask] = np.eye(3)   # fakeOdo identity on sentinel rows
+    t_all[~valid_mask] = 0.0
+
+    rows = []
+    for k in range(len(log)):
+        id_to = int(log.id_to[k])
+        id_from = int(log.id_from[k])
+        if id_from not in seq2graph:
+            continue  # dangling edge (ordered-log assumption)
+        failed = not bool(valid_mask[k])
+        gi = seq2graph[id_from]
+        is_new = id_to not in seq2graph
+        if failed and not is_new:
+            # failed loop closure: skipped entirely (no row, no optimize
+            # cadence check), as the per-frame engines do
+            continue
+        if is_new:
+            gj = len(seq_ids)
+            seq2graph[id_to] = gj
+            seq_ids.append(id_to)
+            nxt = find_index_at(imu.t, float(t_of(id_to)), imu.start)
+            if nxt < 0:
+                nxt = len(imu.t) - imu.start - 1
+            i0, i1 = cur, max(nxt, cur)
+            acc, gyr = imu.window(i0, i1)
+            cur = nxt
+            a, g, d = _pad_window(acc, gyr, i1 - i0, imu.dt, Wimu)
+            imu_slot = n_imu_rows
+            n_imu_rows += 1
+        else:
+            gj = seq2graph[id_to]
+            a = g = d = None
+            imu_slot = -1   # loop closures write no IMU row
+        # the cadence check runs after EVERY record (loop-closure records
+        # can re-trigger at the same count), as in the per-frame engines
+        rows.append(dict(
+            is_new=is_new, failed=failed, edge_valid=not failed,
+            gi=gi, gi_imu=(gj - 1 if is_new else gi), gj=gj,
+            bt_slot=len(rows), imu_slot=imu_slot,
+            last_gj=len(seq_ids) - 1,
+            do_opt=bool(cfg.feedback
+                        and len(seq_ids) % cfg.optimize_step == 0),
+            meas_R=R_all[k], meas_t=t_all[k], sqrt_info=S_all[k],
+            acc=a, gyr=g, dts=d, n_poses=len(seq_ids),
+            n_between=len(rows) + 1, n_imu=n_imu_rows))
+    if not rows:
+        raise ValueError("empty VRO log")
+
+    n_frames = len(seq_ids)
+    P = round_up(n_frames, 8)
+    # the reference's capacities (one reserved dummy slot each, rounded to
+    # 8): window_graph clips its starts against them
+    imu_cap = round_up(n_imu_rows + 1, 8)
+    between_cap = round_up(len(rows) + 1, 8)
+
+    graph = empty_graph(prior_pose_cap=4, between_cap=between_cap,
+                        prior_vel_cap=4, prior_bias_cap=4, imu_cap=imu_cap,
+                        dtype=dtype, device=device)
+    arena = empty_arena(pose_cap=P, vel_cap=P, bias_cap=P, dtype=dtype,
+                        device=device)
+    og = OnlineGraph(graph, arena)
+    pose0 = se3.Pose(torch.as_tensor(init_R), torch.zeros(3))
+    og.set_pose(0, pose0)
+    og.set_vel(0, np.zeros(3))
+    og.set_bias(0, init_bias)
+    og.add_prior_pose(0, pose0, _sqrt_info(6, sigmas=np.full(6, 1e-7)))
+    og.add_prior_vel(0, np.zeros(3), _sqrt_info(3, sigma=1e-3))
+    og.add_prior_bias(0, init_bias, _sqrt_info(6, sigma=1e-3))
+
+    if cfg.window is not None and cfg.window <= 0:
+        raise ValueError("VioConfig.window must be positive or None")
+    if cfg.window is None and n_frames > 2048:
+        raise ValueError(
+            f"engine='scan' on {n_frames} frames requires a fixed-lag "
+            "window (set VioConfig.window): with window=None every "
+            "scheduled optimization QR-solves the FULL arena dimension")
+    Wwin = P if cfg.window is None else cfg.window
+
+    opt_caps = _window_caps(og.graph, cfg.window)
+    counts0 = {"prior_pose": 1, "prior_vel": 1, "prior_bias": 1}
+    for r in rows:
+        r["opt_starts"] = _window_starts(
+            dict(counts0, between=r["n_between"], imu=r["n_imu"]), opt_caps)
+        f = max(0, r["n_poses"] - Wwin)
+        r["free_from"] = [f, f, f, 0, 0]
+
+    xs = {key: np.stack([r[key] for r in rows]) for key in rows[0]
+          if key not in _WINDOWS + _EDGES}
+    new = [r for r in rows if r["is_new"]]      # in IMU-slot order
+    on_dev = og.values.pose_t.device
+
+    def up(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), device=on_dev).to(dt)
+
+    dev = {key: up(np.stack([r[key] for r in rows])) for key in _EDGES}
+    dev.update({key: up(np.stack([r[key] for r in new])) for key in _WINDOWS})
+    dev.update(gi=up(xs["gi"], torch.int64), gj=up(xs["gj"], torch.int64),
+               valid=up(xs["edge_valid"], torch.bool),
+               imu_i=up([r["gi_imu"] for r in new], torch.int64),
+               imu_j=up([r["gj"] for r in new], torch.int64))
+    del rows, new
+    params = ImuParams(*(x.to(device=og.values.pose_t.device)
+                         for x in imu_params))
+    gravity = params.gravity.to(dtype)
+
+    chi2_log = Chi2Log()
+    pt = PhaseTimer()
+    with trace_context(cfg.trace_dir):
+        with pt("replay_scan"):
+            v = og.values
+            prev = tuple(x[0].clone() for x in (v.pose_R, v.pose_t, v.vel,
+                                                 v.bias))
+            prev, chi2 = _replay_scan(
+                og, xs, dev, prev, params, gravity, cfg,
+                0 if robust_k is None else 1,
+                1.0 if robust_k is None else float(robust_k),
+                (Wwin, Wwin, Wwin), opt_caps)
+            og.num_poses = og.num_vels = og.num_biases = n_frames
+            if og.values.pose_t.is_cuda:
+                torch.cuda.synchronize()
+
+        # the window chi2 of every scheduled optimization, read once
+        if chi2:
+            vals = torch.stack([e for _, e in chi2]).cpu().tolist()
+            for (k, _), val in zip(chi2, vals):
+                chi2_log.add(k, int(xs["last_gj"][k]) + 1, None, val)
+
+        graph, values = og.graph, og.values
+        n_vo = int(graph.between.active.sum())
+        e0 = float(total_error(graph, values))
+        if cfg.final_batch:
+            with pt("final_batch"):
+                res = lm_optimize(graph, values, lm_params)
+            values = res.values
+            err = float(res.error)
+        else:
+            err = e0
+    chi2_log.add(len(log), n_frames, e0, err)
+
+    return VioResult(values=values, graph=graph,
+                     seq_ids=np.asarray(seq_ids), error0=e0, error=err,
+                     n_imu_factors=n_imu_rows, n_vo_edges=n_vo,
+                     n_plane_factors=0, plane_book=None,
+                     chi2_log=chi2_log, timers=pt.summary())

@@ -1,0 +1,66 @@
+"""VIO pipeline configuration and result records (port of
+``pipelines/vio_types.py``).
+
+The fields are those of the reference that the port reads; the port runs
+``engine="scan"`` with ``plane_mode`` "off" (or "rescue" with no
+observation source, which is inert). The online engine and the plane
+rescue, and the reference's fields that only they read (``bucket``,
+``scan_chunk``, ``incremental_solver``, ``incremental_pcg_iters``,
+``plane_var_cap``, ``max_planes``, ``min_plane_support``, ``seed``), are
+ROADMAP item C.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+__all__ = ["VioConfig", "VioResult"]
+
+
+@dataclasses.dataclass
+class VioConfig:
+    plane_mode: str = "rescue"        # "rescue" | "always" | "off"
+    optimize_step: int = 10            # incremental optimize cadence (frames)
+    incremental_iters: int = 2         # GN iters per incremental update
+    max_imu_window: int = 512          # padded preintegration window
+    final_batch: bool = True           # LM at the end (reference outputs)
+    feedback: bool = True              # bias/state re-seeding
+    # "online" (per-frame engine, ROADMAP item C) | "scan" (the replay of
+    # host-precomputed records with fixed-lag optimization on schedule)
+    engine: str = "online"
+    window: Optional[int] = None       # fixed-lag window (None = full arena)
+    # chi2 IMU-vs-VRO rotation consistency gate: implemented but default-off,
+    # matching the reference (threshold 40000, flag default false)
+    chi2_vro_gate: bool = False
+    chi2_threshold: float = 4e4
+    # robust kernel on VO between-factors ("huber": Huber(k=robust_k))
+    robust: Optional[str] = None
+    robust_k: float = 1.345
+    # startup gravity/bias initialization (initFromImu + static bias):
+    # align the first pose's rotation to the measured gravity direction and
+    # seed the bias from the pre-sync static window
+    gravity_init: bool = False
+    # static-window length for gravity/bias init; 0 = all pre-sync samples
+    # (falling back to the first 200 when the log starts at the sync point)
+    static_init_samples: int = 0
+    # torch.profiler trace directory (utils.profiling.trace_context)
+    trace_dir: Optional[str] = None
+
+
+@dataclasses.dataclass
+class VioResult:
+    values: object
+    graph: object
+    seq_ids: np.ndarray
+    error0: float
+    error: float
+    n_imu_factors: int
+    n_vo_edges: int
+    n_plane_factors: int
+    plane_book: object            # the plane landmark book (item C); None
+    chi2_log: object = None       # utils.profiling.Chi2Log
+    timers: Optional[dict] = None  # PhaseTimer.summary()
+    plane_stack: object = None    # the plane stack (item C); None

@@ -13,13 +13,17 @@ import pytest
 import torch
 
 from graph_slam_tpu_torch import convert
-from graph_slam_tpu_torch.core import se3
-from graph_slam_tpu_torch.datasets import make_sphere_graph
+from graph_slam_tpu_torch import imu
+from graph_slam_tpu_torch.core import extrinsics, se3
+from graph_slam_tpu_torch.datasets import (make_sphere_graph,
+                                           make_vio_plane_scenario)
 from graph_slam_tpu_torch.device import resolve
-from graph_slam_tpu_torch.graph import GraphBuilder, factors, variables
+from graph_slam_tpu_torch.graph import (GraphBuilder, factors, online,
+                                        variables)
 from graph_slam_tpu_torch.io import VROLog
 from graph_slam_tpu_torch.noise import models as noise
-from graph_slam_tpu_torch.pipelines import build_pose_graph, run_pose_graph
+from graph_slam_tpu_torch.pipelines import (VioConfig, build_pose_graph,
+                                            run_pose_graph, run_vio)
 
 torch.set_num_threads(1)
 
@@ -43,6 +47,22 @@ def _two_pose_graph():
 def _np_graph_and_arena():
     graph, values = _two_pose_graph().build(bucket=4, device="cpu")
     return convert.to_numpy(graph), convert.to_numpy(values)
+
+
+def _vio_run(**kw):
+    log, times, stream, _, _, _ = make_vio_plane_scenario(
+        6, render=False, device="cpu")
+    params = imu.vn100_params(device="cpu")
+    return run_vio(log, times, stream, params,
+                   cfg=VioConfig(engine="scan", plane_mode="off",
+                                 optimize_step=3, max_imu_window=24,
+                                 final_batch=False), **kw).values.pose_t
+
+
+def _np_preint():
+    st = imu.init_preint(np.zeros(6), imu.vn100_params(device="cpu"),
+                         device="cpu")
+    return convert.to_numpy(st)
 
 
 def _propagation_fields():
@@ -74,6 +94,28 @@ ENTRY_POINTS = {
         _np_graph_and_arena()[1], **kw).pose_t,
     "convert.propagation_inputs": lambda **kw: convert.propagation_inputs(
         **_propagation_fields(), **kw).depth,
+    "convert.imu_params_from_numpy": lambda **kw:
+        convert.imu_params_from_numpy(convert.to_numpy(
+            imu.vn100_params(device="cpu")), **kw).gravity,
+    "convert.preint_from_numpy": lambda **kw: convert.preint_from_numpy(
+        _np_preint(), **kw).cov,
+    "run_vio": _vio_run,
+    "make_vio_plane_scenario": lambda **kw: make_vio_plane_scenario(
+        4, render=False, **kw)[3].gravity,
+    "init_preint": lambda **kw: imu.init_preint(
+        np.zeros(6), imu.vn100_params(device="cpu"), **kw).dR,
+    "vn100_params": lambda **kw: imu.vn100_params(**kw).gyro_cov,
+    "mems_params": lambda **kw: imu.mems_params(**kw).gyro_cov,
+    "world_to_original": lambda **kw: extrinsics.world_to_original(
+        0.1, **kw).R,
+    "camera_to_imu": lambda **kw: extrinsics.camera_to_imu(0.1, **kw).R,
+    "camera_to_imu_translation": lambda **kw:
+        extrinsics.camera_to_imu_translation(0.1, 0.2, 0.3, **kw).t,
+    "empty_graph": lambda **kw: factors.empty_graph(2, imu_cap=2,
+                                                    **kw).imu.dR,
+    "OnlineGraph": lambda **kw: online.OnlineGraph(
+        factors.empty_graph(1, 1, **kw),
+        variables.empty_arena(2, 2, 2, **kw)).values.pose_t,
 }
 
 

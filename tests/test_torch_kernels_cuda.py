@@ -164,3 +164,161 @@ def test_region_grow_kernel_rejects_bad_inputs():
     big = [a.to(dev) for a in _grow_inputs(1, 1200, 1600, seed=0)]
     with pytest.raises(ValueError, match="shared memory"):
         grow._launch(big[0], big[1], big[2:], 1, cluster=4)
+
+
+def test_log_depth_preintegration_on_the_card_matches_the_oracle():
+    """The log-depth preintegration on CUDA against the sequential oracle
+    on the CPU, on a padded 64-sample window (float64; the two orders of
+    evaluation agree to roundoff)."""
+    from graph_slam_tpu_torch import imu
+
+    dev = _cuda()
+    r = np.random.default_rng(0)
+    acc = r.normal(size=(64, 3)) + np.array([0.0, 0.0, 9.81])
+    gyr = r.normal(size=(64, 3)) * 0.5
+    dt = np.full(64, 0.005)
+    dt[45:] = 0.0
+    b = r.normal(size=6) * 0.02
+    cpu = imu.vn100_params(device="cpu")
+    ref = imu.integrate_segment_scan(imu.init_preint(b, cpu, device="cpu"),
+                                     acc, gyr, dt, cpu)
+    card = imu.vn100_params(device=dev)
+    out = imu.integrate_segment(imu.init_preint(b, card, device=dev),
+                                acc, gyr, dt, card)
+    for f in ref._fields:
+        a, c = getattr(out, f), getattr(ref, f)
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), c.numpy(),
+                                   rtol=1e-9 if f == "cov" else 0,
+                                   atol=1e-300 if f == "cov" else 1e-10,
+                                   err_msg=f)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_run_vio_on_the_card_matches_the_cpu(window):
+    """A small VIO scan replay on CUDA against the same replay on the CPU
+    (float64, atol 1e-8: cuSOLVER's QR and the card's atomics sum in
+    another order)."""
+    from graph_slam_tpu_torch.datasets import make_vio_plane_scenario
+    from graph_slam_tpu_torch.pipelines import VioConfig, run_vio
+
+    dev = _cuda()
+    cfg = VioConfig(engine="scan", plane_mode="off", optimize_step=10,
+                    max_imu_window=32, window=window,
+                    final_batch=True)
+    runs = []
+    for device in ("cpu", dev):
+        log, times, stream, params, _, _ = make_vio_plane_scenario(
+            60, fail_every=20, render=False, device=device)
+        runs.append(run_vio(log, times, stream, params, cfg=cfg,
+                            device=device))
+    cpu_run, card_run = runs
+    assert card_run.values.pose_t.device.type == "cuda"
+    assert (card_run.n_imu_factors, card_run.n_vo_edges) == \
+        (cpu_run.n_imu_factors, cpu_run.n_vo_edges) == (59, 57)
+    n = len(cpu_run.seq_ids)
+    for f in ("pose_R", "pose_t", "vel", "bias"):
+        np.testing.assert_allclose(
+            getattr(card_run.values, f)[:n].cpu().numpy(),
+            getattr(cpu_run.values, f)[:n].numpy(), rtol=0, atol=1e-8,
+            err_msg=f)
+    for a, b in zip(card_run.chi2_log.rows, cpu_run.chi2_log.rows):
+        assert a[:2] == b[:2]
+        assert abs(a[3] - b[3]) <= 1e-8 * max(1.0, abs(b[3]))
+
+
+def test_imu_jacobian_on_the_card_is_finite_at_identity():
+    """The IMU row's closed-form Jacobian on CUDA at identity rotations
+    (``logmap`` on its Taylor branch, zero residual): finite and equal to
+    the CPU's."""
+    from graph_slam_tpu_torch.graph import factors
+
+    dev = _cuda()
+    out = []
+    for device in ("cpu", dev):
+        eye = torch.eye(3, dtype=torch.float64, device=device).expand(2, 3, 3)
+        z3 = torch.zeros(2, 3, dtype=torch.float64, device=device)
+        z6 = torch.zeros(2, 6, dtype=torch.float64, device=device)
+        g = torch.tensor([0.0, 0.0, -9.81], dtype=torch.float64,
+                         device=device).expand(2, 3)
+        H = torch.full((2, 3, 3), 0.01, dtype=torch.float64, device=device)
+        rows = factors._ImuRows(eye, z3, z3, z6, eye, 0.5 * g * 0.01,
+                                g * 0.1, z6, eye, z3, z3, H, H, H, H, H, z6,
+                                torch.full((2,), 0.1, dtype=torch.float64,
+                                           device=device), g)
+        parts = factors._imu_parts(rows)
+        assert float(parts.e.abs().max()) < 1e-12
+        out.append(factors._imu_jacobian(rows, parts).cpu())
+    assert bool(torch.isfinite(out[1]).all())
+    np.testing.assert_allclose(out[1].numpy(), out[0].numpy(), rtol=0,
+                               atol=1e-12)
+
+
+def _to(x, device):
+    if isinstance(x, tuple):
+        return type(x)(*(_to(f, device) for f in x))
+    return x.to(device)
+
+
+def _max_diff(a, b, n):
+    return max(float((getattr(a, f)[:n].cpu() - getattr(b, f)[:n].cpu())
+                     .abs().max()) for f in ("pose_R", "pose_t", "vel",
+                                             "bias"))
+
+
+def test_windowed_gn_and_lm_on_the_card_match_the_cpu_from_perturbed_values():
+    """The fixed-lag step (window 16, two GN iterations) and the final LM on
+    CUDA against the CPU, from a 60-frame replay's values with frames
+    moved by 0.01 rad / m, so that both take real steps (the replay itself
+    is exact). Float64; atol 1e-9 for the step and 1e-8 for the LM, whose
+    dense Cholesky factors sum in another order on the card."""
+    from graph_slam_tpu_torch.core import so3
+    from graph_slam_tpu_torch.datasets import make_vio_plane_scenario
+    from graph_slam_tpu_torch.graph import LMParams, lm_optimize, total_error
+    from graph_slam_tpu_torch.graph.online import window_graph, windowed_gn
+    from graph_slam_tpu_torch.pipelines import VioConfig, run_vio
+    from graph_slam_tpu_torch.pipelines.vio_scan import (_window_caps,
+                                                         _window_starts)
+
+    dev = _cuda()
+    log, times, stream, params, _, _ = make_vio_plane_scenario(
+        60, fail_every=20, render=False, device=dev)
+    res = run_vio(log, times, stream, params, device=dev,
+                  cfg=VioConfig(engine="scan", plane_mode="off", window=16,
+                                max_imu_window=64, final_batch=False))
+    n, W = len(res.seq_ids), 16
+    r = np.random.default_rng(0)
+
+    def perturbed(lo):
+        v = _to(res.values, "cpu")
+        v.pose_R[lo:n] = so3.expmap(torch.as_tensor(
+            r.normal(size=(n - lo, 3)) * 0.01)) @ v.pose_R[lo:n]
+        v.pose_t[lo:n] += torch.as_tensor(r.normal(size=(n - lo, 3)) * 0.01)
+        v.vel[lo:n] += torch.as_tensor(r.normal(size=(n - lo, 3)) * 0.01)
+        return v
+
+    vw, v0 = perturbed(n - W), perturbed(1)   # the window; all but frame 0
+
+    caps = _window_caps(res.graph, W)
+    starts = _window_starts({"prior_pose": 1, "prior_vel": 1,
+                             "prior_bias": 1, "between": len(log),
+                             "imu": n - 1}, caps)
+    gn, lm = [], []
+    for device in (dev, "cpu"):
+        graph, values = _to(res.graph, device), _to(vw, device)
+        win = window_graph(graph, starts, caps)
+        e0 = float(total_error(win, values))
+        gn.append((e0,) + windowed_gn(win, values, [n - W] * 3 + [0, 0],
+                                      (W, W, W), 1e-6, 2))
+        lm.append(lm_optimize(graph, _to(v0, device), LMParams()))
+    (e0, v_card, e_card), (_, v_cpu, e_cpu) = gn
+    assert v_card.pose_t.device.type == dev.type
+    assert float(e_card) <= 1e-3 * e0, (e0, float(e_card))   # real steps
+    assert abs(float(e_card) - float(e_cpu)) <= 1e-9 * max(1.0, float(e_cpu))
+    assert _max_diff(v_card, v_cpu, n) <= 1e-9
+    # frames before the window stay where they were
+    assert torch.equal(v_card.pose_t[:n - W].cpu(), vw.pose_t[:n - W])
+    assert lm[0].iterations == lm[1].iterations
+    assert float(lm[0].error) <= 1e-12 * float(total_error(res.graph,
+                                                           _to(v0, dev)))
+    assert _max_diff(lm[0].values, lm[1].values, n) <= 1e-8

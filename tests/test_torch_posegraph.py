@@ -334,9 +334,9 @@ def test_unported_options_raise(kwargs):
 
 def test_unported_factor_table_raises(sphere):
     _, _, gt, vt = sphere
-    vel = gt.prior_vel._replace(idx=torch.zeros(1, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="ROADMAP item B"):
-        total_error(gt._replace(prior_vel=vel), vt)
+    plane = gt.plane._replace(pose_idx=torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(NotImplementedError, match="ROADMAP item C"):
+        total_error(gt._replace(plane=plane), vt)
 
 
 def test_cuda_device_without_a_card_raises():
