@@ -4,15 +4,18 @@ The JAX package's pytrees go in as any object with the same field names
 whose leaves are array-likes (``jax.tree.map(np.asarray, graph)`` for
 example), so this module needs no jax. ``graph_from_numpy`` carries every
 table (the IMU, velocity- and bias-prior tables included) and
-``arena_from_numpy`` a VIO arena with its velocities and biases;
+``arena_from_numpy`` a VIO arena with its velocities, biases and plane
+landmarks (the plane factor table rides ``graph_from_numpy``);
 ``imu_params_from_numpy`` and ``preint_from_numpy`` carry the IMU noise
-model and a preintegration state. Integer fields become int64 (torch's
+model and a preintegration state, ``plane_node_from_numpy`` a frame's
+plane set (``PlaneNodeDetection``, numpy on both sides). Integer fields become int64 (torch's
 index type), bool fields bool, floating fields the requested ``dtype``.
 ``to_numpy`` goes the other way for tensors, NamedTuples and sequences.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -23,9 +26,11 @@ from .device import resolve
 from .graph.factors import TABLE_TYPES, FactorGraph
 from .graph.variables import VariableArena
 from .imu import ImuParams, PreintState
+from .planes.plane_node import PlaneNodeDetection
 
 __all__ = ["tensor", "graph_from_numpy", "arena_from_numpy",
            "imu_params_from_numpy", "preint_from_numpy",
+           "plane_node_from_numpy",
            "PropagationInputs", "propagation_inputs", "to_numpy"]
 
 
@@ -74,6 +79,14 @@ def preint_from_numpy(state, *, device=None,
                       dtype=torch.float64) -> PreintState:
     """A JAX ``PreintState`` (numpy leaves) -> the port's ``PreintState``."""
     return _convert(PreintState, state, resolve(device), dtype)
+
+
+def plane_node_from_numpy(det) -> PlaneNodeDetection:
+    """A JAX ``PlaneNodeDetection`` -> the port's, its arrays copied with
+    their dtypes."""
+    return PlaneNodeDetection(**{
+        f.name: np.array(getattr(det, f.name))
+        for f in dataclasses.fields(PlaneNodeDetection)})
 
 
 class PropagationInputs(NamedTuple):

@@ -7,11 +7,12 @@ indices, measurement, square-root information, robust parameters and an
 0.5 * ||whitened||^2 (or the Huber loss of the whitened norm).
 
 Ported: the pose prior and between tables (closed-form linearizations),
-the velocity and bias priors (closed form, J = S) and the CombinedImuFactor
-table (closed-form 30-column Jacobian, held to ``torch.func.jacfwd`` and
-to the reference's autodiff Jacobian by the tests). The plane, projection
-and point-prior tables exist with their fields so a ``FactorGraph`` has
-the reference's shape; they must have capacity 0, and
+the velocity and bias priors (closed form, J = S), the CombinedImuFactor
+table (closed-form 30-column Jacobian) and the OrientedPlane3Factor table
+(closed-form 9-column Jacobian); the tests hold both Jacobians to
+``torch.func.jacfwd`` and to the reference's autodiff Jacobian. The
+projection and point-prior tables exist with their fields so a
+``FactorGraph`` has the reference's shape; they must have capacity 0, and
 ``total_error``/``linearize_blocks`` raise ``NotImplementedError`` on one
 that does not.
 """
@@ -25,6 +26,7 @@ import torch
 from ..core import se3, so3
 from ..device import resolve
 from ..noise.models import ROBUST_HUBER, huber_weight
+from ..planes import oriented_plane
 from .variables import VariableArena, layout_of
 
 __all__ = [
@@ -91,6 +93,10 @@ class PriorVec6Table(NamedTuple):
 
 
 class PlaneTable(NamedTuple):
+    """OrientedPlane3Factor rows: ``meas`` is the plane observed in the body
+    frame of pose ``pose_idx``; the prediction transforms the world
+    landmark ``plane_idx`` into that frame."""
+
     pose_idx: Tensor
     plane_idx: Tensor
     meas: Tensor
@@ -155,7 +161,6 @@ class FactorGraph(NamedTuple):
 
 # The ROADMAP item that ports each table that is not ported yet.
 _NOT_PORTED = {
-    "plane": "C (plane rescue)",
     "projection": "D (bundle adjustment)",
     "prior_point": "D (bundle adjustment)",
 }
@@ -383,6 +388,93 @@ def _imu_lin(values: VariableArena, table: ImuTable):
     return r * mask[:, None], J * mask[:, None, None]
 
 
+class _PlaneRows(NamedTuple):
+    """The pose, landmark and measurement one plane row reads, gathered."""
+
+    R: Tensor      # (F, 3, 3)
+    t: Tensor      # (F, 3)
+    L: Tensor      # (F, 4) world landmark
+    meas: Tensor   # (F, 4) body-frame observation
+
+
+def _plane_rows(values: VariableArena, table: PlaneTable) -> _PlaneRows:
+    return _PlaneRows(values.pose_R[table.pose_idx],
+                      values.pose_t[table.pose_idx],
+                      values.plane[table.plane_idx], table.meas)
+
+
+def _plane_residual(g: _PlaneRows, delta):
+    """``local(meas, transform(retract(L, delta_L), retract(X, delta_X)))``
+    at the tangent step ``delta`` (..., 9), pose first."""
+    X = se3.retract(se3.Pose(g.R, g.t), delta[..., :6])
+    Lw = oriented_plane.retract(g.L, delta[..., 6:])
+    return oriented_plane.local(g.meas,
+                                oriented_plane.transform(Lw, X.R, X.t))
+
+
+def _plane_jacobian(g: _PlaneRows):
+    """Closed-form (F, 3, 9) Jacobian of the plane residual at delta = 0.
+
+    The prediction p = (R^T n, d + n . t) moves, to first order, by
+    dn_p = [n_p]x w + R^T B(n) xi_n and dd_p = n_p . v + t^T B(n) xi_n +
+    xi_d (pose tangent (w, v), landmark tangent (xi_n, xi_d)). The chart
+    at the measurement a is e_n = B(a)^T w(n_p) with w = (theta / s) perp,
+    perp = n_p - c a, c = a . n_p, s = |perp|, theta = atan2(s, c), whose
+    derivative is
+
+        dw/dn_p = g (I - u u^T) P + u (c u^T P - s a^T) / (s^2 + c^2),
+
+    g = theta / s, u = perp / s, P = I - a a^T; at coincident normals
+    (s^2 below the chart's threshold, where w = perp) it is P. The
+    ``oriented_plane.local`` form (atan2) keeps this finite there in
+    float32, where an arccos derivative would be NaN.
+    """
+    n = g.L[..., :3]
+    n = n / torch.linalg.norm(n, dim=-1, keepdim=True)   # retract(L, 0)
+    BL = oriented_plane.basis(g.L[..., :3])
+    RT = g.R.transpose(-1, -2)
+    n_p = _mv(RT, n)
+    a = g.meas[..., :3]
+    c = torch.clamp(torch.sum(a * n_p, dim=-1), -1.0, 1.0)
+    perp = n_p - c[..., None] * a
+    s2 = torch.sum(perp * perp, dim=-1)
+    ok = s2 > torch.finfo(c.dtype).tiny ** 0.5
+    s = torch.sqrt(torch.where(ok, s2, torch.ones_like(s2)))
+    theta = torch.atan2(torch.where(ok, s, torch.zeros_like(s)), c)
+    gs = (theta / s)[..., None, None]
+    u = perp / s[..., None]
+    eye = torch.eye(3, dtype=c.dtype, device=c.device)
+    P = eye - a[..., :, None] * a[..., None, :]
+    uuT = u[..., :, None] * u[..., None, :]
+    uTP = (u[..., None, :] @ P)[..., 0, :]
+    tail = (c[..., None] * uTP - s[..., None] * a) \
+        / (s2 + c * c)[..., None]
+    Dw = gs * ((eye - uuT) @ P) + u[..., :, None] * tail[..., None, :]
+    Dw = torch.where(ok[..., None, None], Dw, P)
+    En = oriented_plane.basis(a).transpose(-1, -2) @ Dw    # (F, 2, 3)
+    RTB = RT @ BL                                          # (F, 3, 2)
+    J = torch.zeros(*c.shape, 3, 9, dtype=c.dtype, device=c.device)
+    J[..., 0:2, 0:3] = En @ so3.hat(n_p)
+    J[..., 0:2, 6:8] = En @ RTB
+    J[..., 2, 3:6] = n_p
+    J[..., 2, 6:8] = (g.t[..., None, :] @ BL)[..., 0, :]
+    J[..., 2, 8] = 1.0
+    return J
+
+
+def _plane_lin(values: VariableArena, table: PlaneTable):
+    """Whitened plane rows and their closed-form (F, 3, 9) Jacobians."""
+    rows = _plane_rows(values, table)
+    zero = torch.zeros(*table.meas.shape[:-1], 9, dtype=rows.t.dtype,
+                       device=rows.t.device)
+    S = table.sqrt_info
+    r = _mv(S, _plane_residual(rows, zero))
+    J = S @ _plane_jacobian(rows)
+    s = _robust_scale(r, table.robust_kind, table.robust_k)
+    mask = table.active.to(r.dtype) * s
+    return r * mask[:, None], J * mask[:, None, None]
+
+
 def total_error(graph: FactorGraph, values: VariableArena):
     """GTSAM ``NonlinearFactorGraph::error``: sum of factor losses (0-d)."""
     _check_ported(graph)
@@ -397,6 +489,11 @@ def total_error(graph: FactorGraph, values: VariableArena):
         tb = getattr(graph, name)
         if tb.idx.shape[0]:
             e = e + _table_loss(tb, x[tb.idx] - tb.mean)
+    if graph.plane.pose_idx.shape[0]:
+        rows = _plane_rows(values, graph.plane)
+        zero = torch.zeros(*graph.plane.meas.shape[:-1], 9,
+                           dtype=rows.t.dtype, device=rows.t.device)
+        e = e + _table_loss(graph.plane, _plane_residual(rows, zero))
     if graph.imu.i.shape[0]:
         e = e + _table_loss(graph.imu,
                             _imu_parts(_imu_rows(values, graph.imu)).e)
@@ -426,6 +523,11 @@ def linearize_blocks(graph: FactorGraph, values: VariableArena):
     if graph.prior_bias.idx.shape[0]:
         r, J = _prior_vec_lin(graph.prior_bias, values.bias)
         blocks.append((r, J, lay.bias_cols(graph.prior_bias.idx)))
+    if graph.plane.pose_idx.shape[0]:
+        r, J = _plane_lin(values, graph.plane)
+        cols = torch.cat([lay.pose_cols(graph.plane.pose_idx),
+                          lay.plane_cols(graph.plane.plane_idx)], dim=-1)
+        blocks.append((r, J, cols))
     if graph.imu.i.shape[0]:
         r, J = _imu_lin(values, graph.imu)
         i, j = graph.imu.i, graph.imu.j

@@ -13,18 +13,23 @@ Jacobian rows of a suffix window are scattered through a column map into a
 stacked matrix of the window's width and the damped least squares is
 solved by QR (cuSOLVER on the card).
 
-Not ported yet (ROADMAP item C, with the online engine):
-``IncrementalOptimizer``, ``grow``, ``save_state``/``load_state`` and the
-plane appenders.
+``grow`` re-homes the arenas at larger capacities (the plane writer calls
+it when a long rescue run fills the plane tables). Not ported yet (the
+online engine, ROADMAP queue 1): ``IncrementalOptimizer`` and
+``save_state``/``load_state``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import se3
-from .factors import FactorGraph, linearize_blocks, total_error
-from .variables import VariableArena, layout_of, retract_all, used_slot_mask
+from ..device import upload
+from .factors import (TABLE_TYPES, FactorGraph, empty_table,
+                      linearize_blocks, total_error)
+from .variables import (VariableArena, empty_arena, layout_of, retract_all,
+                        used_slot_mask)
 
 __all__ = ["OnlineGraph", "window_graph", "windowed_gn", "between_row",
            "imu_row"]
@@ -95,11 +100,17 @@ class OnlineGraph:
         self.num_poses = int(values.num_poses)
         self.num_vels = int(values.num_vels)
         self.num_biases = int(values.num_biases)
+        self.num_planes = int(values.num_planes)
 
-    def _t(self, x):
-        """A value on the arena's device and dtype."""
+    def _t(self, x, dtype=None):
+        """A value on the arena's device, in its dtype unless ``dtype`` is
+        given; a host array is copied without a host sync
+        (``device.upload``)."""
         v = self.values.pose_t
-        return torch.as_tensor(x, device=v.device).to(v.dtype)
+        dtype = v.dtype if dtype is None else dtype
+        if isinstance(x, torch.Tensor):
+            return x.to(v.device, dtype)
+        return upload(x, v.device, dtype)
 
     # -- variables ------------------------------------------------------
     def set_pose(self, idx: int, pose: se3.Pose, new: bool = True):
@@ -120,6 +131,30 @@ class OnlineGraph:
         self.values.num_biases.clamp_(min=idx + int(new))
         if new:
             self.num_biases = max(self.num_biases, idx + 1)
+
+    def set_planes(self, idxs, ps, new: bool = True):
+        """Landmark rows ``idxs`` set to the planes ``ps`` (K, 4) in one
+        write, each normal scaled to unit length exactly: an almost-unit
+        normal puts a floor under the sphere chart's residual that no
+        optimizer removes."""
+        idxs = np.asarray(idxs, np.int64).reshape(-1)
+        if len(idxs) == 0:
+            return
+        cap = self.values.plane.shape[0]
+        if int(idxs.max()) >= cap:
+            raise RuntimeError(
+                f"plane variable arena full ({cap}); grow(plane_var_cap=...)"
+                " or raise VioConfig.plane_var_cap")
+        ps = np.asarray(ps, np.float64).reshape(-1, 4)
+        ps = ps / np.linalg.norm(ps[:, :3], axis=1, keepdims=True)
+        lo, hi = int(idxs.min()), int(idxs.max()) + 1
+        if hi - lo == len(idxs) and (np.diff(idxs) == 1).all():
+            self.values.plane[lo:hi] = self._t(ps)
+        else:
+            self.values.plane[self._t(idxs, torch.int64)] = self._t(ps)
+        if new:
+            self.values.num_planes.clamp_(min=hi)
+            self.num_planes = max(self.num_planes, hi)
 
     # -- factors ----------------------------------------------------------
     def _slot(self, key: str, cap: int) -> int:
@@ -161,6 +196,29 @@ class OnlineGraph:
                     0 if robust is None else 1,
                     1.0 if robust is None else float(robust))
 
+    def add_plane_factors(self, pose_idx, plane_idx, meas, sqrt_info):
+        """Append K plane-factor rows in one write; each measured normal is
+        scaled to unit length exactly (see ``set_planes``)."""
+        k = len(pose_idx)
+        if k == 0:
+            return
+        cap = self.graph.plane.pose_idx.shape[0]
+        s0 = self._n["plane"]
+        if s0 + k > cap:
+            raise RuntimeError(
+                f"factor arena 'plane' full ({cap}); rebuild with larger "
+                "capacity")
+        self._n["plane"] = s0 + k
+        m = np.asarray(meas, np.float64).reshape(k, 4)
+        m = m / np.linalg.norm(m[:, :3], axis=1, keepdims=True)
+        tb = self.graph.plane
+        rows = slice(s0, s0 + k)
+        tb.pose_idx[rows] = self._t(np.asarray(pose_idx), torch.int64)
+        tb.plane_idx[rows] = self._t(np.asarray(plane_idx), torch.int64)
+        tb.meas[rows] = self._t(m)
+        tb.sqrt_info[rows] = self._t(np.asarray(sqrt_info).reshape(k, 3, 3))
+        tb.active[rows].fill_(True)
+
     def add_imu_factor(self, i, j, preint, gravity):
         s = self._slot("imu", self.graph.imu.i.shape[0])
         p = preint
@@ -174,6 +232,37 @@ class OnlineGraph:
 
     def error(self) -> float:
         return float(total_error(self.graph, self.values))
+
+    # -- growth -----------------------------------------------------------
+    def grow(self, plane_var_cap=None, factor_caps=None):
+        """Re-home the plane landmark arena and the factor tables at larger
+        capacities (``factor_caps`` by table name; the only operation that
+        changes shapes). Fresh empty arenas at the new capacities keep the
+        padded rows' benign defaults; the live prefix is copied in."""
+        lay = layout_of(self.values)
+        v = self.values
+        dtype, dev = v.pose_t.dtype, v.pose_t.device
+        new_vals = empty_arena(
+            pose_cap=lay.pose_cap, vel_cap=lay.vel_cap, bias_cap=lay.bias_cap,
+            plane_cap=plane_var_cap or lay.plane_cap,
+            point_cap=lay.point_cap, dtype=dtype, device=dev)
+
+        def copy_into(new, old):
+            if new.dim() == 0:
+                return old
+            n = min(new.shape[0], old.shape[0])
+            new[:n] = old[:n]
+            return new
+
+        self.values = VariableArena(*map(copy_into, new_vals, v))
+        fc = dict(factor_caps or {})
+        tables = []
+        for name, typ in TABLE_TYPES.items():
+            old = getattr(self.graph, name)
+            cap = max(fc.get(name, 0), old[0].shape[0])
+            new = empty_table(typ, cap, dtype=dtype, device=dev)
+            tables.append(typ(*map(copy_into, new, old)))
+        self.graph = FactorGraph(*tables)
 
 
 def window_graph(graph: FactorGraph, starts, caps) -> FactorGraph:

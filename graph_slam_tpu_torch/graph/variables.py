@@ -85,6 +85,10 @@ class TangentLayout(NamedTuple):
         return self.bias_off + 6 * idx[..., None] + torch.arange(
             6, device=idx.device)
 
+    def plane_cols(self, idx):
+        return self.plane_off + 3 * idx[..., None] + torch.arange(
+            3, device=idx.device)
+
 
 def layout_of(values: VariableArena) -> TangentLayout:
     return TangentLayout(

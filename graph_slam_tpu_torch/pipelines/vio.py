@@ -9,10 +9,16 @@ prediction); loop-closure edges are added when both endpoints exist; every
 ``optimize_step`` frames a fixed-lag optimization feeds the bias and state
 back into the next preintegration.
 
-Ported: ``engine="scan"`` (``pipelines.vio_scan``) without planes. Not
-ported yet (ROADMAP item C): ``engine="online"`` and the plane rescue
-(``plane_mode="rescue"`` with ``frames`` or ``plane_obs_provider``).
+With ``plane_mode="rescue"`` and a plane source, a record whose VO edge
+failed is rescued by planes: with ``frames`` the previous frame's planes
+are propagated into the new one (the CUDA region grow on the card) and
+fresh planes extracted where they do not cover it; with
+``plane_obs_provider`` the provider's observations are inserted. The
+planes become landmarks and OrientedPlane3 factors.
 ``plane_mode="rescue"`` with neither source is inert, as in the reference.
+
+Ported: ``engine="scan"`` (``pipelines.vio_scan``). Not ported yet (the
+online engine, ROADMAP queue 1): ``engine="online"``.
 """
 
 from __future__ import annotations
@@ -33,12 +39,6 @@ from .vio_types import VioConfig, VioResult
 __all__ = ["VioConfig", "VioResult", "run_vio"]
 
 
-def _item_c(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP item C: the online engine and "
-        "the plane rescue, pipelines/vio_planes.py)")
-
-
 def run_vio(log: VROLog, img_times, imu: ImuStream,
             imu_params: ImuParams, u2c: Optional[se3.Pose] = None,
             plane_obs_provider: Optional[Callable] = None,
@@ -55,10 +55,12 @@ def run_vio(log: VROLog, img_times, imu: ImuStream,
       img_times: mapping seq_id -> timestamp (dict or callable).
       u2c: camera->IMU extrinsic (``core.extrinsics.camera_to_imu``);
         ``None`` is the identity.
-      plane_obs_provider, frames, intrinsics: the plane rescue's sources
-        (ROADMAP item C).
-      params: accepted for the reference's signature; the plane stack is
-        its only reader.
+      plane_obs_provider: optional ``seq_id -> [(plane_cam4, cov3x3),
+        ...]``, per-frame plane observations in the camera frame.
+      frames: optional ``seq_id -> (intensity, depth) | None`` (numpy,
+        depth in meters) with ``intrinsics``: the rescue runs the plane
+        stack from the frames (node 0's planes become landmarks).
+      params: ``lookback_nodes`` sets the landmark association window.
     """
     device = resolve(device)
     t_of = img_times.__getitem__ if hasattr(img_times, "__getitem__") \
@@ -66,7 +68,9 @@ def run_vio(log: VROLog, img_times, imu: ImuStream,
     if frames is not None and intrinsics is None:
         raise ValueError("frames mode requires camera intrinsics")
     if cfg.engine == "online":
-        raise _item_c("engine='online'")
+        raise NotImplementedError(
+            "engine='online' is not ported yet (ROADMAP queue 1: the "
+            "online engine)")
     if cfg.engine != "scan":
         raise ValueError(f"unknown engine {cfg.engine!r} (online|scan)")
     if cfg.plane_mode == "always":
@@ -76,8 +80,7 @@ def run_vio(log: VROLog, img_times, imu: ImuStream,
             "not); use engine='online' for 'always'")
     if not cfg.feedback:
         raise ValueError("engine='scan' requires feedback=True")
-    if cfg.plane_mode == "rescue" and (frames is not None
-                                       or plane_obs_provider is not None):
-        raise _item_c("plane_mode='rescue' with a plane observation source")
-    return _run_vio_scan(log, t_of, imu, imu_params, u2c, cfg, lm_params,
-                         device=device, dtype=dtype)
+    return _run_vio_scan(log, t_of, imu, imu_params, u2c, params, cfg,
+                         lm_params, device=device, dtype=dtype, frames=frames,
+                         intrinsics=intrinsics,
+                         plane_obs_provider=plane_obs_provider)

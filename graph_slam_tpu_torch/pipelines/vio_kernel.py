@@ -8,7 +8,7 @@ and IMU rows (``online.between_row``/``imu_row``). The scan engine
 preintegrates and writes the rows of every record up to the next
 optimization at once, and runs only ``_vio_frame_kernel`` record by
 record. The reference's one-record ``_fused_vio_step`` is not ported:
-only the online engine (ROADMAP item C) calls it. The record's structure
+only the online engine (ROADMAP queue 1) calls it. The record's structure
 (is it a new frame, did its VO edge fail, which slots) is known on the
 host from the log, so those branches are Python; only the gate's verdict
 is data, and it stays a tensor on the device (``torch.where``), so a

@@ -2,12 +2,10 @@
 ``pipelines/vio_types.py``).
 
 The fields are those of the reference that the port reads; the port runs
-``engine="scan"`` with ``plane_mode`` "off" (or "rescue" with no
-observation source, which is inert). The online engine and the plane
-rescue, and the reference's fields that only they read (``bucket``,
-``scan_chunk``, ``incremental_solver``, ``incremental_pcg_iters``,
-``plane_var_cap``, ``max_planes``, ``min_plane_support``, ``seed``), are
-ROADMAP item C.
+``engine="scan"`` with ``plane_mode`` "off" or "rescue". The online
+engine and the reference's fields that only it reads (``bucket``,
+``scan_chunk``, ``incremental_solver``, ``incremental_pcg_iters``) wait
+for its slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -28,10 +26,11 @@ class VioConfig:
     max_imu_window: int = 512          # padded preintegration window
     final_batch: bool = True           # LM at the end (reference outputs)
     feedback: bool = True              # bias/state re-seeding
-    # "online" (per-frame engine, ROADMAP item C) | "scan" (the replay of
+    # "online" (per-frame engine, ROADMAP queue 1) | "scan" (the replay of
     # host-precomputed records with fixed-lag optimization on schedule)
     engine: str = "online"
     window: Optional[int] = None       # fixed-lag window (None = full arena)
+    plane_var_cap: int = 32            # initial plane landmark capacity
     # chi2 IMU-vs-VRO rotation consistency gate: implemented but default-off,
     # matching the reference (threshold 40000, flag default false)
     chi2_vro_gate: bool = False
@@ -39,6 +38,11 @@ class VioConfig:
     # robust kernel on VO between-factors ("huber": Huber(k=robust_k))
     robust: Optional[str] = None
     robust_k: float = 1.345
+    # frames-driven plane extraction (CPlaneNode::extractPlanes params);
+    # ``seed`` keys the RANSAC draws
+    max_planes: int = 4
+    min_plane_support: int = 300
+    seed: int = 0
     # startup gravity/bias initialization (initFromImu + static bias):
     # align the first pose's rotation to the measured gravity direction and
     # seed the bias from the pre-sync static window
@@ -60,7 +64,7 @@ class VioResult:
     n_imu_factors: int
     n_vo_edges: int
     n_plane_factors: int
-    plane_book: object            # the plane landmark book (item C); None
+    plane_book: object            # planes.PlaneLandmarkBook, or None
     chi2_log: object = None       # utils.profiling.Chi2Log
     timers: Optional[dict] = None  # PhaseTimer.summary()
-    plane_stack: object = None    # the plane stack (item C); None
+    plane_stack: object = None    # vio_planes._PlaneStack, or None

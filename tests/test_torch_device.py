@@ -59,6 +59,19 @@ def _vio_run(**kw):
                                  final_batch=False), **kw).values.pose_t
 
 
+def _rescue_run(**kw):
+    """A provider-fed rescue: every other record failed, one wall seen."""
+    log, times, stream, _, _, _ = make_vio_plane_scenario(
+        6, fail_every=2, render=False, device="cpu")
+    params = imu.vn100_params(device="cpu")
+    return run_vio(log, times, stream, params,
+                   plane_obs_provider=lambda seq: [
+                       (np.array([0.0, 0.0, 1.0, -4.0]), np.eye(3) * 1e-5)],
+                   cfg=VioConfig(engine="scan", plane_mode="rescue",
+                                 optimize_step=3, max_imu_window=24,
+                                 final_batch=False), **kw).values.plane
+
+
 def _np_preint():
     st = imu.init_preint(np.zeros(6), imu.vn100_params(device="cpu"),
                          device="cpu")
@@ -100,6 +113,7 @@ ENTRY_POINTS = {
     "convert.preint_from_numpy": lambda **kw: convert.preint_from_numpy(
         _np_preint(), **kw).cov,
     "run_vio": _vio_run,
+    "run_vio (plane rescue)": _rescue_run,
     "make_vio_plane_scenario": lambda **kw: make_vio_plane_scenario(
         4, render=False, **kw)[3].gravity,
     "init_preint": lambda **kw: imu.init_preint(

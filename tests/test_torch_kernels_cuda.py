@@ -322,3 +322,85 @@ def test_windowed_gn_and_lm_on_the_card_match_the_cpu_from_perturbed_values():
     assert float(lm[0].error) <= 1e-12 * float(total_error(res.graph,
                                                            _to(v0, dev)))
     assert _max_diff(lm[0].values, lm[1].values, n) <= 1e-8
+
+
+def test_rescue_replay_on_the_card_matches_the_cpu():
+    """The plane-rescue replay (200 frames, every 20th VO edge failed,
+    SR4000 frames of the two-plane room) on CUDA against the CPU, float64:
+    the RANSAC uniforms are drawn on the CPU for both, so the counts are
+    equal; positions atol 1e-8 m and chi2 1e-8 relative. Every prediction
+    launched the region grow once on the card."""
+    from graph_slam_tpu_torch.datasets import make_vio_plane_scenario
+    from graph_slam_tpu_torch.pipelines import VioConfig, run_vio
+
+    dev = _cuda()
+    cfg = VioConfig(engine="scan", plane_mode="rescue", optimize_step=10,
+                    max_imu_window=64, window=16, final_batch=False)
+    log, times, stream, params, frames, K = make_vio_plane_scenario(
+        200, fail_every=20, render="lazy", device=dev)
+    runs = []
+    for device in ("cpu", dev):
+        before = region_grow.launches
+        runs.append(run_vio(log, times, stream, params, frames=frames,
+                            intrinsics=K, cfg=cfg, device=device))
+        launched = region_grow.launches - before
+    cpu_run, card_run = runs
+    assert card_run.values.pose_t.device.type == "cuda"
+    assert card_run.timers["rescue_step"]["calls"] == 9
+    assert launched == card_run.plane_stack.n_predict > 0
+    counts = [(r.n_plane_factors, len(r.plane_book.world), r.n_imu_factors,
+               r.n_vo_edges) for r in runs]
+    assert counts[0] == counts[1] and counts[0][0] > 0
+    n = len(cpu_run.seq_ids)
+    np.testing.assert_allclose(card_run.values.pose_t[:n].cpu().numpy(),
+                               cpu_run.values.pose_t[:n].numpy(), rtol=0,
+                               atol=1e-8)
+    for a, b in zip(card_run.chi2_log.rows, cpu_run.chi2_log.rows):
+        assert a[:2] == b[:2]
+        assert abs(a[3] - b[3]) <= 1e-8 * max(1.0, abs(b[3]))
+
+
+def test_plane_extraction_on_the_card_matches_the_cpu():
+    """RANSAC extraction of a rendered SR4000 frame with the same draw on
+    the card and on the CPU: masks bit-equal, parameters 1e-9 (float64)."""
+    from graph_slam_tpu_torch.config import SR4000
+    from graph_slam_tpu_torch.datasets.synthetic import _render_plane_frame
+    from graph_slam_tpu_torch.planes import extract_plane_node
+
+    dev = _cuda()
+    scene = [(np.array([0.0, 0.0, 1.0, -4.0]), 150.0),
+             (np.array([0.0, 1.0, 0.0, -0.8]), 80.0)]
+    _, depth = _render_plane_frame(SR4000, np.eye(3),
+                                       np.array([0.05, 0.0, 0.1]), scene,
+                                       noise=0.002, seed=1)
+    dets = [extract_plane_node((0, 0, 1), SR4000, depth, device=d,
+                               dtype=torch.float64) for d in ("cpu", dev)]
+    assert len(dets[0]) == len(dets[1]) == 2
+    np.testing.assert_array_equal(dets[1].masks, dets[0].masks)
+    np.testing.assert_allclose(dets[1].params, dets[0].params, atol=1e-9)
+
+
+def test_plane_jacobian_on_the_card_matches_the_cpu():
+    """The plane factor's closed-form Jacobian on CUDA, coincident normals
+    included, in float64 and float32: finite and equal to the CPU's."""
+    from graph_slam_tpu_torch.core import so3
+    from graph_slam_tpu_torch.graph import factors
+
+    dev = _cuda()
+    r = np.random.default_rng(0)
+    R = so3.expmap(torch.as_tensor(r.normal(size=(6, 3)) * 0.5))
+    t = torch.as_tensor(r.normal(size=(6, 3)))
+    n = torch.nn.functional.normalize(torch.as_tensor(r.normal(size=(6, 3))),
+                                      dim=-1)
+    L = torch.cat([n, torch.as_tensor(r.normal(size=(6, 1)))], -1)
+    n_p = (R.transpose(-1, -2) @ n[..., None])[..., 0]
+    meas = torch.cat([n_p, (L[:, 3] + (n * t).sum(-1))[:, None]], -1)
+    meas[3:, :3] = torch.nn.functional.normalize(
+        meas[3:, :3] + 0.05 * torch.as_tensor(r.normal(size=(3, 3))), dim=-1)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        out = [factors._plane_jacobian(factors._PlaneRows(
+            *(x.to(device, dtype) for x in (R, t, L, meas)))).cpu()
+            for device in ("cpu", dev)]
+        assert bool(torch.isfinite(out[1]).all())
+        np.testing.assert_allclose(out[1].numpy(), out[0].numpy(), rtol=0,
+                                   atol=tol)

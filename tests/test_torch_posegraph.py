@@ -334,9 +334,9 @@ def test_unported_options_raise(kwargs):
 
 def test_unported_factor_table_raises(sphere):
     _, _, gt, vt = sphere
-    plane = gt.plane._replace(pose_idx=torch.zeros(1, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="ROADMAP item C"):
-        total_error(gt._replace(plane=plane), vt)
+    proj = gt.projection._replace(pose_idx=torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(NotImplementedError, match="ROADMAP item D"):
+        total_error(gt._replace(projection=proj), vt)
 
 
 def test_cuda_device_without_a_card_raises():
