@@ -1,5 +1,5 @@
 """Online graph engine: preallocated arenas + in-place row writes (port of
-the parts of ``graph/online.py`` that the VIO scan engine runs).
+``graph/online.py``).
 
 The arenas are allocated at capacity once; every "add" writes rows of
 the preallocated tensors in place and bumps a host-side slot counter, so
@@ -11,31 +11,54 @@ card issues no host sync.
 ``windowed_gn`` is the compact fixed-lag Gauss–Newton step: the whitened
 Jacobian rows of a suffix window are scattered through a column map into a
 stacked matrix of the window's width and the damped least squares is
-solved by QR (cuSOLVER on the card).
+solved by QR (cuSOLVER on the card). ``IncrementalOptimizer`` is the
+ISAM2-role estimator of the online engine: warm-started GN steps over the
+whole arena, or the fixed-lag step over the last ``window`` frames.
 
-``grow`` re-homes the arenas at larger capacities (the plane writer calls
-it when a long rescue run fills the plane tables). Not ported yet (the
-online engine, ROADMAP queue 1): ``IncrementalOptimizer`` and
-``save_state``/``load_state``.
+``grow`` re-homes the arenas at larger capacities; ``save_state`` and
+``load_state`` checkpoint the whole engine state in the reference's
+``.npz`` layout, so a checkpoint of the JAX package loads here.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core import se3
-from ..device import upload
+from ..device import resolve, upload
 from .factors import (TABLE_TYPES, FactorGraph, empty_table,
                       linearize_blocks, total_error)
+from .lm import LMParams, LMResult, gn_optimize, lm_optimize
 from .variables import (VariableArena, empty_arena, layout_of, retract_all,
                         used_slot_mask)
 
-__all__ = ["OnlineGraph", "window_graph", "windowed_gn", "between_row",
-           "imu_row"]
+__all__ = ["OnlineGraph", "IncrementalOptimizer", "window_graph",
+           "windowed_gn", "between_row", "imu_row"]
 
 # factor-table field order used for window starts/caps
 _TABLES = FactorGraph._fields
+
+
+def _window_caps(graph, window):
+    """Per-table row caps of the fixed-lag window (``_TABLES`` order; the
+    reference's ``IncrementalOptimizer._window_caps``), from the live
+    graph's tables: the last ``8 W`` between, ``W`` IMU, ``4 W`` plane and
+    ``16 W`` projection rows, every row of the other tables; ``window``
+    None is the whole graph."""
+    want = {"between": 8 * window, "imu": window, "plane": 4 * window,
+            "projection": 16 * window} if window else {}
+    return tuple(min(tb[0].shape[0], want.get(nm, tb[0].shape[0]))
+                 for nm, tb in zip(_TABLES, graph))
+
+
+def _window_starts(counts, caps):
+    """Each table's window start: its last ``caps`` rows of the ``counts``
+    rows used (a dict by table name; absent tables hold none)."""
+    return [max(0, counts.get(nm, 0) - caps[t])
+            for t, nm in enumerate(_TABLES)]
 
 
 def _put(col, slot, value):
@@ -156,6 +179,10 @@ class OnlineGraph:
             self.values.num_planes.clamp_(min=hi)
             self.num_planes = max(self.num_planes, hi)
 
+    def set_plane(self, idx: int, p, new: bool = True):
+        """One landmark row: ``set_planes`` of one plane."""
+        self.set_planes([idx], np.asarray(p, np.float64)[None], new)
+
     # -- factors ----------------------------------------------------------
     def _slot(self, key: str, cap: int) -> int:
         s = self._n[key]
@@ -219,6 +246,12 @@ class OnlineGraph:
         tb.sqrt_info[rows] = self._t(np.asarray(sqrt_info).reshape(k, 3, 3))
         tb.active[rows].fill_(True)
 
+    def add_plane_factor(self, pose_idx, plane_idx, meas, sqrt_info):
+        """One plane-factor row: ``add_plane_factors`` of one row."""
+        self.add_plane_factors([pose_idx], [plane_idx],
+                               np.asarray(meas, np.float64)[None],
+                               np.asarray(sqrt_info)[None])
+
     def add_imu_factor(self, i, j, preint, gravity):
         s = self._slot("imu", self.graph.imu.i.shape[0])
         p = preint
@@ -233,19 +266,69 @@ class OnlineGraph:
     def error(self) -> float:
         return float(total_error(self.graph, self.values))
 
+    # -- checkpoint / resume ----------------------------------------------
+    def save_state(self, path: str) -> None:
+        """Checkpoint the whole engine state (arenas, factor tables, slot
+        counters) to one ``.npz`` in the reference's layout:
+        ``g.<table>.<field>``, ``v.<field>``, ``n.keys`` and ``n.slots``.
+        Integer fields are saved as int64 (the reference's are int32)."""
+        flat = {f"g.{name}.{field}": leaf.detach().cpu().numpy()
+                for name, tb in zip(_TABLES, self.graph)
+                for field, leaf in zip(tb._fields, tb)}
+        flat.update({f"v.{field}": leaf.detach().cpu().numpy()
+                     for field, leaf in zip(self.values._fields,
+                                            self.values)})
+        keys = sorted(self._n)
+        flat["n.slots"] = np.asarray([self._n[k] for k in keys], np.int64)
+        flat["n.keys"] = np.asarray(keys)
+        np.savez_compressed(path, **flat)
+
+    @classmethod
+    def load_state(cls, path: str, *, device=None,
+                   dtype=None) -> "OnlineGraph":
+        """Resume a ``save_state`` checkpoint (the port's or the JAX
+        package's) on ``device`` (``None``: the card). Integer fields load
+        as int64, bools as bool, floating fields in ``dtype`` (default: the
+        file's)."""
+        device = resolve(device)
+
+        def t(a):
+            if a.dtype == np.bool_:
+                dt = torch.bool
+            elif np.issubdtype(a.dtype, np.integer):
+                dt = torch.int64
+            else:
+                dt = dtype
+            return torch.from_numpy(a).to(device=device, dtype=dt)
+
+        with np.load(path, allow_pickle=False) as z:
+            graph = FactorGraph(*(
+                typ(*(t(z[f"g.{name}.{f}"]) for f in typ._fields))
+                for name, typ in TABLE_TYPES.items()))
+            values = VariableArena(*(t(z[f"v.{f}"])
+                                     for f in VariableArena._fields))
+            og = cls(graph, values)
+            for k, n in zip(z["n.keys"], z["n.slots"]):
+                og._n[str(k)] = int(n)
+        return og
+
     # -- growth -----------------------------------------------------------
-    def grow(self, plane_var_cap=None, factor_caps=None):
-        """Re-home the plane landmark arena and the factor tables at larger
-        capacities (``factor_caps`` by table name; the only operation that
-        changes shapes). Fresh empty arenas at the new capacities keep the
-        padded rows' benign defaults; the live prefix is copied in."""
+    def grow(self, pose_cap=None, vel_cap=None, bias_cap=None,
+             plane_var_cap=None, point_cap=None, factor_caps=None):
+        """Re-home the arenas at larger capacities (``factor_caps`` by
+        table name; the only operation that changes shapes). Fresh empty
+        arenas at the new capacities keep the padded rows' benign defaults
+        (identity rotations, unit sqrt-information); the live prefix is
+        copied in."""
         lay = layout_of(self.values)
         v = self.values
         dtype, dev = v.pose_t.dtype, v.pose_t.device
         new_vals = empty_arena(
-            pose_cap=lay.pose_cap, vel_cap=lay.vel_cap, bias_cap=lay.bias_cap,
+            pose_cap=pose_cap or lay.pose_cap,
+            vel_cap=vel_cap or lay.vel_cap,
+            bias_cap=bias_cap or lay.bias_cap,
             plane_cap=plane_var_cap or lay.plane_cap,
-            point_cap=lay.point_cap, dtype=dtype, device=dev)
+            point_cap=point_cap or lay.point_cap, dtype=dtype, device=dev)
 
         def copy_into(new, old):
             if new.dim() == 0:
@@ -378,3 +461,54 @@ def windowed_gn(win: FactorGraph, values: VariableArena, free_from, wcaps,
             R, -(Q.transpose(0, 1) @ b)[:, None], upper=True)[:, 0]
         values = retract_all(values, torch.cat([delta_w, zero1])[cmap])
     return values, total_error(win, values)
+
+
+class IncrementalOptimizer:
+    """ISAM2-role incremental estimation: every ``update`` runs
+    ``iters_per_update`` damped GN steps warm-started from the live
+    estimate; ``full_batch`` runs the LM over the whole graph.
+
+    ``window=None`` relinearizes the whole (masked) arena each update with
+    ``gn_optimize`` (``solver`` "dense" or "pcg", ``pcg_iters``): the same
+    cost at every update, O(capacity). ``window=W`` is the fixed-lag step:
+    the last ``W`` poses, velocities and biases are free over the suffix
+    window of each table (``window_graph`` with ``_window_caps``), older
+    ones are constants, and ``windowed_gn`` solves the window's compact
+    system (``solver`` does not apply).
+    """
+
+    def __init__(self, iters_per_update: int = 1, damping: float = 1e-6,
+                 solver: str = "dense", pcg_iters: int = 100,
+                 window: Optional[int] = None):
+        if window is not None and window <= 0:
+            raise ValueError("window must be positive or None")
+        self.iters = iters_per_update
+        self.damping = damping
+        self.solver = solver
+        self.pcg_iters = pcg_iters
+        self.window = window
+
+    def update(self, og: OnlineGraph) -> LMResult:
+        """One update of ``og.values`` in place of the old; returns the
+        ``LMResult`` (its ``error`` a 0-d device tensor: the whole graph's
+        chi2, or the window's)."""
+        if self.window is None:
+            res = gn_optimize(og.graph, og.values, iterations=self.iters,
+                              solver=self.solver, damping=self.damping,
+                              pcg_iters=self.pcg_iters)
+            og.values = res.values
+            return res
+        W = self.window
+        caps = _window_caps(og.graph, W)
+        win = window_graph(og.graph, _window_starts(og._n, caps), caps)
+        free = [max(0, n - W) for n in (og.num_poses, og.num_vels,
+                                        og.num_biases)]
+        og.values, err = windowed_gn(win, og.values, free + [0, 0],
+                                     (W, W, W), self.damping, self.iters)
+        return LMResult(og.values, err, self.iters, self.damping, True)
+
+    def full_batch(self, og: OnlineGraph,
+                   params: LMParams = LMParams()) -> LMResult:
+        res = lm_optimize(og.graph, og.values, params)
+        og.values = res.values
+        return res

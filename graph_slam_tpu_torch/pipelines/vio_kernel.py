@@ -7,12 +7,12 @@ selection and the value writes (``_vio_frame_kernel``), plus its between
 and IMU rows (``online.between_row``/``imu_row``). The scan engine
 preintegrates and writes the rows of every record up to the next
 optimization at once, and runs only ``_vio_frame_kernel`` record by
-record. The reference's one-record ``_fused_vio_step`` is not ported:
-only the online engine (ROADMAP queue 1) calls it. The record's structure
-(is it a new frame, did its VO edge fail, which slots) is known on the
-host from the log, so those branches are Python; only the gate's verdict
-is data, and it stays a tensor on the device (``torch.where``), so a
-record costs no host sync.
+record; the online engine's fast path runs the three for one record
+(``_fused_vio_step``). The record's structure (is it a new frame, did its
+VO edge fail, which slots) is known on the host from the log, so those
+branches are Python; only the gate's verdict is data, and it stays a
+tensor on the device (``torch.where``), so a record costs no host sync.
+Both engines take their edges from ``_host_edges``.
 """
 
 from __future__ import annotations
@@ -21,11 +21,14 @@ import numpy as np
 import torch
 
 from ..core import se3, so3
+from ..graph.online import between_row, imu_row
 from ..imu import (ImuParams, ImuStream, find_index_at, init_preint,
                    integrate_segment, predict_navstate)
+from ..io.vro_log import FAILED_INFO_SENTINEL
 
-__all__ = ["_vio_frame_kernel", "_preintegrate", "_static_init",
-           "_pad_window", "_conjugate_edges_batch", "_expmap_batch"]
+__all__ = ["_vio_frame_kernel", "_fused_vio_step", "_preintegrate",
+           "_static_init", "_pad_window", "_host_edges",
+           "_conjugate_edges_batch", "_expmap_batch"]
 
 
 def _preintegrate(bias, imu_params: ImuParams, acc, gyr, dts):
@@ -88,6 +91,34 @@ def _vio_frame_kernel(values, st, prev, meas_R, meas_t, failed, gi_vo, gj,
     return est_R, est_t, pred_vel, failed
 
 
+def _fused_vio_step(og, imu_params: ImuParams, acc, gyr, dts, prev,
+                    meas_R, meas_t, sqrt_info, robust_kind, robust_k, failed,
+                    gi, gj, bt_slot, imu_slot, gravity, gate: bool,
+                    gate_thresh):
+    """One new frame of the online engine's fast path (no plane stack):
+    the window ``(acc, gyr, dts)`` preintegrated from the feedback bias,
+    ``_vio_frame_kernel`` for frame ``gj`` matched to ``gi``, then its
+    between row in slot ``bt_slot`` and its IMU row ``gj - 1 -> gj`` in
+    ``imu_slot``, all in ``og`` in place.
+
+    The between row is written with ``active = ~failed``: a sentinel or
+    gated edge spends its slot and adds no residual, and with ``gate`` the
+    verdict stays on the device, so nothing is read back. Returns
+    ``(est_R, est_t, pred_vel)``.
+    """
+    st = _preintegrate(prev[3], imu_params, acc, gyr, dts)
+    est_R, est_t, pred_vel, failed = _vio_frame_kernel(
+        og.values, st, prev, meas_R, meas_t, failed, gi, gj, gravity, gate,
+        gate_thresh)
+    between_row(og.graph.between, bt_slot, gi, gj, meas_R, meas_t,
+                sqrt_info, robust_kind, robust_k, active=~failed
+                if isinstance(failed, torch.Tensor) else not failed)
+    imu_row(og.graph.imu, imu_slot, gj - 1, gj, st.dR, st.dp, st.dv,
+            st.H_R_bg, st.H_p_ba, st.H_p_bg, st.H_v_ba, st.H_v_bg,
+            st.bias_hat, st.dt, gravity, st.cov)
+    return est_R, est_t, pred_vel
+
+
 def _static_init(imu: ImuStream, t0: float, imu_params: ImuParams,
                  n_samples: int = 0):
     """Startup gravity/bias initialization from the static window
@@ -127,6 +158,34 @@ def _pad_window(acc, gyr, n, dt_nom, max_window):
     if k == 0:
         dt_p[0] = dt_nom
     return acc_p, gyr_p, dt_p
+
+
+def _host_edges(log, u2c):
+    """Every VRO edge camera -> body at once on the host, in float64:
+    ``(R, t, sqrt_info, valid)`` by record. The sqrt-information of the
+    valid rows comes from one batched Cholesky of the conjugated
+    information; a sentinel row (a failed edge) gets the identity fakeOdo
+    and an identity sqrt-information."""
+    valid = np.asarray(log.info[:, 0, 0] != FAILED_INFO_SENTINEL)
+    xi = torch.as_tensor(np.asarray(log.xi, np.float64))
+    if u2c is not None:
+        uR = u2c.R.detach().cpu().double()
+        ut = u2c.t.detach().cpu().double()
+        R, t = _conjugate_edges_batch(xi, uR, ut)
+        Ad = se3.adjoint(se3.Pose(uR, ut)).numpy()
+        info = np.einsum("ab,kbc,dc->kad", Ad,
+                         np.asarray(log.info, np.float64), Ad)
+    else:
+        R, t = _expmap_batch(xi)
+        info = np.asarray(log.info, np.float64)
+    R = R.numpy().copy()
+    t = t.numpy().copy()
+    S = np.tile(np.eye(6), (len(log), 1, 1))
+    if valid.any():
+        S[valid] = np.transpose(np.linalg.cholesky(info[valid]), (0, 2, 1))
+    R[~valid] = np.eye(3)
+    t[~valid] = 0.0
+    return R, t, S, valid
 
 
 def _conjugate_edges_batch(xi, uR, ut):

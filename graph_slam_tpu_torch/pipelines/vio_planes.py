@@ -1,10 +1,11 @@
 """Plane-stack plumbing of the VIO pipeline (port of
-``pipelines/vio_planes.py`` for the scan engine).
+``pipelines/vio_planes.py``).
 
 The host-side plane state machine of ``test_vro_imu_graph.cpp``:
 firstPlaneNode, the rescue block and the addPlaneFactor /
-planeNodeAssociation split, written into the scan engine's live
-``OnlineGraph`` arenas.
+planeNodeAssociation split, written into either engine's live
+``OnlineGraph`` arenas; and ``_OnlineVioGraph``, the online engine's
+arenas sized from the log with their builder-shaped writers.
 
 A rescue enqueues its device work (the plane prediction, whose flood
 fill is the CUDA region grow on the card), then reads every result it
@@ -15,8 +16,10 @@ body projections of host detections run on the CPU in float64. The frames'
 device work runs in the arena's dtype (``plane_node``'s note on
 precision).
 
-Not ported yet (the online engine, ROADMAP queue 1): ``_OnlineVioGraph``,
-the second writer of the reference's plane stack.
+Both engines write the same arena type, so the stack writes the
+``OnlineGraph`` directly (its growth policy is ``_PlaneStack._grow``); the
+reference's writer layer (``_PlaneWriterMixin``, ``_append_planes_batch``)
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -26,16 +29,84 @@ import torch
 
 from ..config import SlamParams
 from ..core import se3
-from ..device import to_host
-from ..graph.builder import _sqrt_info
+from ..device import resolve, to_host
+from ..graph.builder import _sqrt_info, round_up
+from ..graph.factors import empty_graph
 from ..graph.online import OnlineGraph
+from ..graph.variables import empty_arena
 from ..planes import (PlaneLandmarkBook, extract_plane_node,
                       extract_plane_nodes_batch, inflate_if_uncertain,
                       predict_plane_node_finish, predict_plane_node_start,
                       repair_plane_cov, transform_plane_cov)
 from .vio_types import VioConfig
 
-__all__ = ["_PlaneStack", "_transform_plane_covs_batch"]
+__all__ = ["_OnlineVioGraph", "_PlaneStack", "_transform_plane_covs_batch"]
+
+
+class _OnlineVioGraph:
+    """The online engine's graph: one preallocated ``OnlineGraph`` (``og``)
+    sized from the log, with builder-shaped writers: the variable writers
+    append and return the index, the priors take their noise model as
+    ``sigma``, ``sigmas``, ``information`` or ``sqrt_info``
+    (``graph.builder``).
+
+    ``P = round_up(n_frames, bucket)`` poses, velocities, biases and IMU
+    rows; ``round_up(n_edges + 4, bucket)`` between rows;
+    ``round_up(plane_factor_cap, bucket)`` plane rows; four rows of each
+    prior; ``plane_var_cap`` landmarks (``_PlaneStack`` grows the plane
+    arenas past theirs). On ``device`` (``None``: the card) in ``dtype``.
+    """
+
+    def __init__(self, n_frames: int, n_edges: int, bucket: int,
+                 plane_var_cap: int, plane_factor_cap: int, *, device=None,
+                 dtype=torch.float64):
+        device = resolve(device)
+        P = round_up(n_frames, bucket)
+        self.og = OnlineGraph(
+            empty_graph(prior_pose_cap=4,
+                        between_cap=round_up(n_edges + 4, bucket),
+                        prior_vel_cap=4, prior_bias_cap=4,
+                        plane_cap=round_up(plane_factor_cap, bucket),
+                        imu_cap=P, dtype=dtype, device=device),
+            empty_arena(pose_cap=P, vel_cap=P, bias_cap=P,
+                        plane_cap=plane_var_cap, dtype=dtype, device=device))
+
+    # -- variables (appended in order) -----------------------------------
+    def add_pose(self, pose: se3.Pose) -> int:
+        gid = self.og.num_poses
+        self.og.set_pose(gid, pose)
+        return gid
+
+    def add_vel(self, v) -> int:
+        vid = self.og.num_vels
+        self.og.set_vel(vid, v)
+        return vid
+
+    def add_bias(self, b) -> int:
+        bid = self.og.num_biases
+        self.og.set_bias(bid, b)
+        return bid
+
+    def pose(self, idx: int) -> se3.Pose:
+        return self.og.pose(idx)
+
+    # -- factors ----------------------------------------------------------
+    def add_prior_pose(self, idx, pose: se3.Pose, **noise):
+        self.og.add_prior_pose(idx, pose, _sqrt_info(6, **noise))
+
+    def add_prior_vel(self, idx, mean, **noise):
+        self.og.add_prior_vel(idx, mean, _sqrt_info(3, **noise))
+
+    def add_prior_bias(self, idx, mean, **noise):
+        self.og.add_prior_bias(idx, mean, _sqrt_info(6, **noise))
+
+    def add_between(self, i, j, meas: se3.Pose, sqrt_info, robust=None):
+        """A VO edge or loop closure (``sqrt_info`` as the engine
+        precomputed it, ``vio_kernel._host_edges``)."""
+        self.og.add_between(i, j, meas, sqrt_info, robust=robust)
+
+    def add_imu_factor(self, i, j, preint, gravity):
+        self.og.add_imu_factor(i, j, preint, gravity)
 
 
 def _transform_plane_covs_batch(planes, covs, pose: se3.Pose):

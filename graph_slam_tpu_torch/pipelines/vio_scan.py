@@ -38,41 +38,23 @@ from ..device import to_host
 from ..graph import LMParams, lm_optimize, total_error
 from ..graph.builder import _sqrt_info, round_up
 from ..graph.factors import empty_graph
-from ..graph.online import (OnlineGraph, _TABLES, between_row, imu_row,
-                            window_graph, windowed_gn)
+from ..graph.online import (OnlineGraph, _window_caps, _window_starts,
+                            between_row, imu_row, window_graph, windowed_gn)
 from ..graph.variables import empty_arena
 from ..imu import ImuParams, ImuStream, PreintState, find_index_at
-from ..io.vro_log import FAILED_INFO_SENTINEL, VROLog
+from ..io.vro_log import VROLog
 from ..utils.profiling import Chi2Log, PhaseTimer, trace_context
-from .vio_kernel import (_conjugate_edges_batch, _expmap_batch, _pad_window,
-                         _preintegrate, _static_init, _vio_frame_kernel)
+from .vio_kernel import (_host_edges, _pad_window, _preintegrate,
+                         _static_init, _vio_frame_kernel)
 from .vio_planes import _PlaneStack
 from .vio_types import VioConfig, VioResult
 
-__all__ = ["_run_vio_scan", "_replay_scan", "_window_caps",
-           "_window_starts"]
+__all__ = ["_run_vio_scan", "_replay_scan"]
 
 # record fields uploaded to the device once (the rest stay host-side):
 # edges by record, IMU windows by IMU slot (new frames only)
 _EDGES = ("meas_R", "meas_t", "sqrt_info")
 _WINDOWS = ("acc", "gyr", "dts")
-
-
-def _window_caps(graph, window):
-    """Per-table row caps of the fixed-lag window (``_TABLES`` order; the
-    reference's ``current_opt_caps``), from the live graph's tables:
-    ``window`` None is the whole table."""
-    want = {"between": 8 * window, "imu": window, "plane": 4 * window} \
-        if window else {}
-    return tuple(min(tb[0].shape[0], want.get(nm, tb[0].shape[0]))
-                 for nm, tb in zip(_TABLES, graph))
-
-
-def _window_starts(counts, caps):
-    """Each table's window start: its last ``caps`` rows of the ``counts``
-    rows used (a dict by table name; absent tables hold none)."""
-    return [max(0, counts.get(nm, 0) - caps[t])
-            for t, nm in enumerate(_TABLES)]
 
 
 def _replay_scan(og: OnlineGraph, xs, dev, prev, imu_params, gravity, cfg,
@@ -189,29 +171,7 @@ def _run_vio_scan(log: VROLog, t_of, imu: ImuStream,
     cur = 0
     n_imu_rows = 0
 
-    # every edge camera->body at once on the host, in float64; the
-    # sqrt-information of the valid rows by one batched Cholesky, sentinel
-    # rows an identity fakeOdo
-    valid_mask = np.asarray(log.info[:, 0, 0] != FAILED_INFO_SENTINEL)
-    xi_all = torch.as_tensor(np.asarray(log.xi, np.float64))
-    if u2c is not None:
-        uR = u2c.R.detach().cpu().double()
-        ut = u2c.t.detach().cpu().double()
-        R_all, t_all = _conjugate_edges_batch(xi_all, uR, ut)
-        Ad = se3.adjoint(se3.Pose(uR, ut)).numpy()
-        info_all = np.einsum("ab,kbc,dc->kad", Ad,
-                             np.asarray(log.info, np.float64), Ad)
-    else:
-        R_all, t_all = _expmap_batch(xi_all)
-        info_all = np.asarray(log.info, np.float64)
-    R_all = R_all.numpy().copy()
-    t_all = t_all.numpy().copy()
-    S_all = np.tile(np.eye(6), (len(log), 1, 1))
-    if valid_mask.any():
-        S_all[valid_mask] = np.transpose(
-            np.linalg.cholesky(info_all[valid_mask]), (0, 2, 1))
-    R_all[~valid_mask] = np.eye(3)   # fakeOdo identity on sentinel rows
-    t_all[~valid_mask] = 0.0
+    R_all, t_all, S_all, valid_mask = _host_edges(log, u2c)
 
     rows = []
     for k in range(len(log)):

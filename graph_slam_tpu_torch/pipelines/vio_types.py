@@ -1,11 +1,10 @@
 """VIO pipeline configuration and result records (port of
 ``pipelines/vio_types.py``).
 
-The fields are those of the reference that the port reads; the port runs
-``engine="scan"`` with ``plane_mode`` "off" or "rescue". The online
-engine and the reference's fields that only it reads (``bucket``,
-``scan_chunk``, ``incremental_solver``, ``incremental_pcg_iters``) wait
-for its slice (ROADMAP queue 1).
+Shared by the per-frame online engine (``pipelines.vio``) and the
+whole-replay scan engine (``pipelines.vio_scan``). The fields are the
+reference's but ``scan_chunk``: the port's scan engine is a host loop over
+records and compiles no chunks, so nothing would read it.
 """
 
 from __future__ import annotations
@@ -26,9 +25,14 @@ class VioConfig:
     max_imu_window: int = 512          # padded preintegration window
     final_batch: bool = True           # LM at the end (reference outputs)
     feedback: bool = True              # bias/state re-seeding
-    # "online" (per-frame engine, ROADMAP queue 1) | "scan" (the replay of
-    # host-precomputed records with fixed-lag optimization on schedule)
+    bucket: int = 256                  # online arenas' capacity step
+    # "online" (the per-frame loop over preallocated OnlineGraph arenas,
+    # the ISAM2-role engine) | "scan" (the replay of host-precomputed
+    # records with fixed-lag optimization on schedule)
     engine: str = "online"
+    # the online engine's full-arena update (window None): "dense" | "pcg"
+    incremental_solver: str = "dense"
+    incremental_pcg_iters: int = 100
     window: Optional[int] = None       # fixed-lag window (None = full arena)
     plane_var_cap: int = 32            # initial plane landmark capacity
     # chi2 IMU-vs-VRO rotation consistency gate: implemented but default-off,

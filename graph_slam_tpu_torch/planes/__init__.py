@@ -10,8 +10,8 @@ from .extraction import (PlaneDetection, extract_planes, fit_plane_lsq,
                          hypothesis_uniforms, plane_tangent_cov,
                          point_plane_dist)
 from .plane_node import (PlaneNodeDetection, extract_plane_node,
-                         extract_plane_nodes_batch, predict_plane_node_finish,
-                         predict_plane_node_start)
+                         extract_plane_nodes_batch, predict_plane_node,
+                         predict_plane_node_finish, predict_plane_node_start)
 from .propagation import (PropagationResult, propagate_plane,
                           propagate_planes, propagated_distance_variance)
 from .psd import inflate_if_uncertain, repair_plane_cov
@@ -22,7 +22,8 @@ __all__ = ["oriented_plane", "PlaneLandmarkBook", "match_plane",
            "extract_planes", "fit_plane_lsq", "hypothesis_uniforms",
            "plane_tangent_cov", "point_plane_dist", "PlaneNodeDetection",
            "extract_plane_node", "extract_plane_nodes_batch",
-           "predict_plane_node_finish", "predict_plane_node_start",
+           "predict_plane_node", "predict_plane_node_finish",
+           "predict_plane_node_start",
            "PropagationResult", "propagate_plane", "propagate_planes",
            "propagated_distance_variance", "inflate_if_uncertain",
            "repair_plane_cov", "region_grow", "region_grow_torch"]

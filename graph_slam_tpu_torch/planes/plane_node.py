@@ -21,15 +21,16 @@ where the reference skips it saves more than the read costs. The RANSAC
 draw of a fresh extraction is keyed by a tuple of ints
 (``extraction.hypothesis_uniforms``).
 
+``predict_plane_node`` is the synchronous form from a body-frame relative
+pose: start and finish at once, or a fresh extraction when there is no
+previous plane.
+
 Precision: the reference computes the refits in the frame's dtype (float32
 for rendered frames, inside a float64 run) and promotes where they meet
 the float64 poses. Here a whole prediction runs in one dtype, the estimated
 pose's (the VIO arena's): the frames are cast to it on upload. On float64
 frames the two agree to rounding; on float32 frames the port's planes are
 the float64 refit of the same pixels.
-
-Not ported yet (the online engine, ROADMAP queue 1): the synchronous
-``predict_plane_node``.
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ from .extraction import PlaneDetection, extract_planes, hypothesis_uniforms
 from .propagation import propagate_planes
 
 __all__ = ["PlaneNodeDetection", "extract_plane_node",
-           "extract_plane_nodes_batch", "predict_plane_node_start",
-           "predict_plane_node_finish"]
+           "extract_plane_nodes_batch", "predict_plane_node",
+           "predict_plane_node_start", "predict_plane_node_finish"]
 
 _N_HYP = 512
 # bytes of one batch's (frames x hypotheses x pixels) distance tensor
@@ -342,3 +343,51 @@ def predict_plane_node_finish(handle):
     pbs = np.stack([(pb_p if k == 0 else pb_f)[i] for k, i in src])
     cbs = np.stack([(cb_p if k == 0 else cb_f)[i] for k, i in src])
     return det, (pbs, cbs)
+
+
+def predict_plane_node(key, K: CameraIntrinsics,
+                       prev: Optional[PlaneNodeDetection], T_body, S_pose,
+                       intensity, depth, u2c: Optional[se3.Pose] = None,
+                       keep_ratio: float = 0.7, coverage_thresh: float = 0.5,
+                       max_new_planes: int = 4, min_support: int = 300,
+                       grow_steps: int = 64, z_min: float = 0.1,
+                       z_max: float = 5.0, sigma_z: float = 0.014, *,
+                       device=None, dtype=torch.float64
+                       ) -> Optional[PlaneNodeDetection]:
+    """Carry the previous frame's planes into the current one
+    (``CGraphGT::predictPlaneNode``), on ``device`` (``None``: the card)
+    in ``dtype``.
+
+    ``T_body`` is the current frame's pose in the previous one's body
+    frame and ``S_pose`` its 6x6 covariance (numpy or tensors); ``u2c``
+    conjugates both into the camera frame. The previous planes are
+    propagated (the region grow), kept at ``keep_ratio`` of their support
+    with their landmark ids, and the uncovered cloud extracted when they
+    cover at most ``coverage_thresh`` of the frame:
+    ``predict_plane_node_start`` from the identity to ``T_body``, then
+    ``predict_plane_node_finish``. With no previous plane, the whole
+    frame's fresh extraction. ``key`` keys the extraction's draw. Returns
+    None when nothing is found.
+    """
+    device = resolve(device)
+
+    def t(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device, dtype)
+        return upload(np.asarray(x, np.float64), device, dtype)
+
+    if prev is None or not len(prev):
+        return extract_plane_node(key, K, depth, max_planes=max_new_planes,
+                                  min_support=min_support, sigma_z=sigma_z,
+                                  z_min=z_min, z_max=z_max, device=device,
+                                  dtype=dtype)
+    if u2c is not None:
+        u2c = se3.Pose(t(u2c.R), t(u2c.t))
+    ident = se3.identity(dtype=dtype, device=device)
+    handle = predict_plane_node_start(
+        key, K, prev, ident.R, ident.t, t(T_body.R), t(T_body.t), t(S_pose),
+        intensity, depth, u2c=u2c, keep_ratio=keep_ratio,
+        coverage_thresh=coverage_thresh, max_new_planes=max_new_planes,
+        min_support=min_support, grow_steps=grow_steps, z_min=z_min,
+        z_max=z_max, sigma_z=sigma_z)
+    return predict_plane_node_finish(handle)[0]

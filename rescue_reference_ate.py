@@ -3,11 +3,14 @@
 ``rescue`` phase to hold the port to.
 
     JAX_PLATFORMS=cpu python3 rescue_reference_ate.py [--frames 2000]
+        [--engine scan|online]
 
 Replays ``make_vio_plane_scenario(N, fail_every=100, render="lazy")`` with
 the JAX bench's ``vio_planes_2k`` configuration (``bench.py:343-345``:
-scan engine, plane rescue, optimize every 10 frames, IMU window 64, window
-16, no final batch) in float64 and prints one JSON line: the ATE RMSE in
+plane rescue, optimize every 10 frames, IMU window 64, window 16, no final
+batch) through the scan engine (the default) or the per-frame online
+engine (``--engine online``, the bench's ``compare_online`` configuration,
+``bench.py:369``) in float64 and prints one JSON line: the ATE RMSE in
 metres (Umeyama-aligned, ``chip_smoke._ate``'s formula), the mean rotation
 error, the path length and the rescue's counts. Takes minutes on one CPU.
 """
@@ -47,14 +50,30 @@ def _ate(est_R, est_t, gt_R, gt_t):
     return ate, float(np.degrees(np.arccos(tr)).mean())
 
 
+def _failed_new_records(log):
+    """``chip_smoke._failed_new_records``: records whose VO edge failed on
+    a frame not seen before, the ones the rescue takes."""
+    from graph_slam_tpu.io.vro_log import FAILED_INFO_SENTINEL
+
+    seen, n = {int(log.id_from[0])}, 0
+    for k in range(len(log)):
+        if int(log.id_from[k]) not in seen:
+            continue
+        new = int(log.id_to[k]) not in seen
+        seen.add(int(log.id_to[k]))
+        n += new and bool(log.info[k, 0, 0] == FAILED_INFO_SENTINEL)
+    return n
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=2000)
+    ap.add_argument("--engine", choices=("scan", "online"), default="scan")
     args = ap.parse_args()
     log, times, stream, params, frames, K, (gt_R, gt_t) = \
         make_vio_plane_scenario(n_frames=args.frames, fail_every=100,
                                 render="lazy", return_gt=True)
-    cfg = VioConfig(engine="scan", plane_mode="rescue", optimize_step=10,
+    cfg = VioConfig(engine=args.engine, plane_mode="rescue", optimize_step=10,
                     max_imu_window=64, bucket=64, window=16,
                     final_batch=False)
     t0 = time.perf_counter()
@@ -71,7 +90,11 @@ def main():
         "frames": args.frames, "ate_rmse_m": ate, "ate_rot_mean_deg": rot,
         "path_m": path, "n_plane_factors": int(res.n_plane_factors),
         "landmarks": len(res.plane_book.world),
-        "rescue_steps": res.timers["rescue_step"]["calls"],
+        "engine": args.engine,
+        # the online engine times no rescue step: count the failed
+        # new-frame records it rescued from the log
+        "rescue_steps": res.timers["rescue_step"]["calls"]
+        if "rescue_step" in res.timers else _failed_new_records(log),
         "error": res.error, "cpu_wall_s": wall,
         "jax": jax.__version__}))
 

@@ -23,7 +23,8 @@ from graph_slam_tpu_torch.graph import (GraphBuilder, factors, online,
 from graph_slam_tpu_torch.io import VROLog
 from graph_slam_tpu_torch.noise import models as noise
 from graph_slam_tpu_torch.pipelines import (VioConfig, build_pose_graph,
-                                            run_pose_graph, run_vio)
+                                            run_pose_graph, run_vio,
+                                            vio_planes)
 
 torch.set_num_threads(1)
 
@@ -49,14 +50,28 @@ def _np_graph_and_arena():
     return convert.to_numpy(graph), convert.to_numpy(values)
 
 
-def _vio_run(**kw):
+def _vio_run(engine="scan", **kw):
     log, times, stream, _, _, _ = make_vio_plane_scenario(
         6, render=False, device="cpu")
     params = imu.vn100_params(device="cpu")
     return run_vio(log, times, stream, params,
-                   cfg=VioConfig(engine="scan", plane_mode="off",
+                   cfg=VioConfig(engine=engine, plane_mode="off",
                                  optimize_step=3, max_imu_window=24,
-                                 final_batch=False), **kw).values.pose_t
+                                 bucket=8, final_batch=False),
+                   **kw).values.pose_t
+
+
+def _load_state(**kw):
+    """A checkpoint written from the CPU, loaded where ``kw`` says."""
+    import os
+    import tempfile
+
+    og = online.OnlineGraph(factors.empty_graph(1, 1, device="cpu"),
+                            variables.empty_arena(2, device="cpu"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        og.save_state(path)
+        return online.OnlineGraph.load_state(path, **kw).values.pose_t
 
 
 def _rescue_run(**kw):
@@ -113,6 +128,10 @@ ENTRY_POINTS = {
     "convert.preint_from_numpy": lambda **kw: convert.preint_from_numpy(
         _np_preint(), **kw).cov,
     "run_vio": _vio_run,
+    "run_vio (online)": lambda **kw: _vio_run(engine="online", **kw),
+    "OnlineGraph.load_state": _load_state,
+    "_OnlineVioGraph": lambda **kw: vio_planes._OnlineVioGraph(
+        4, 3, 8, 4, 8, **kw).og.values.pose_t,
     "run_vio (plane rescue)": _rescue_run,
     "make_vio_plane_scenario": lambda **kw: make_vio_plane_scenario(
         4, render=False, **kw)[3].gravity,

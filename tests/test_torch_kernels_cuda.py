@@ -277,8 +277,8 @@ def test_windowed_gn_and_lm_on_the_card_match_the_cpu_from_perturbed_values():
     from graph_slam_tpu_torch.graph import LMParams, lm_optimize, total_error
     from graph_slam_tpu_torch.graph.online import window_graph, windowed_gn
     from graph_slam_tpu_torch.pipelines import VioConfig, run_vio
-    from graph_slam_tpu_torch.pipelines.vio_scan import (_window_caps,
-                                                         _window_starts)
+    from graph_slam_tpu_torch.graph.online import (_window_caps,
+                                                   _window_starts)
 
     dev = _cuda()
     log, times, stream, params, _, _ = make_vio_plane_scenario(
@@ -355,6 +355,77 @@ def test_rescue_replay_on_the_card_matches_the_cpu():
     np.testing.assert_allclose(card_run.values.pose_t[:n].cpu().numpy(),
                                cpu_run.values.pose_t[:n].numpy(), rtol=0,
                                atol=1e-8)
+    for a, b in zip(card_run.chi2_log.rows, cpu_run.chi2_log.rows):
+        assert a[:2] == b[:2]
+        assert abs(a[3] - b[3]) <= 1e-8 * max(1.0, abs(b[3]))
+
+
+@pytest.mark.parametrize("mode,window,rescues", [("rescue", 16, 9),
+                                                ("always", None, 199)])
+def test_online_rescue_on_the_card_matches_the_cpu(mode, window, rescues):
+    """The online engine's plane replay (200 frames, every 20th VO edge
+    failed, SR4000 frames of the two-plane room) on CUDA against the CPU,
+    float64: counts equal, positions atol 1e-8 m, chi2 1e-8 relative; the
+    rescue runs on each failed new frame, or with ``plane_mode="always"``
+    on every new frame (there with the full-arena dense update), and every
+    prediction launched the region grow once on the card."""
+    from graph_slam_tpu_torch.datasets import make_vio_plane_scenario
+    from graph_slam_tpu_torch.pipelines import VioConfig, run_vio
+
+    dev = _cuda()
+    cfg = VioConfig(engine="online", plane_mode=mode, optimize_step=10,
+                    max_imu_window=64, bucket=64, window=window,
+                    final_batch=False)
+    log, times, stream, params, frames, K = make_vio_plane_scenario(
+        200, fail_every=20, render="lazy", device=dev)
+    runs = []
+    for device in ("cpu", dev):
+        before = region_grow.launches
+        runs.append(run_vio(log, times, stream, params, frames=frames,
+                            intrinsics=K, cfg=cfg, device=device))
+        launched = region_grow.launches - before
+    cpu_run, card_run = runs
+    assert card_run.values.pose_t.device.type == "cuda"
+    assert card_run.timers["rescue_step"]["calls"] == rescues
+    assert launched == card_run.plane_stack.n_predict > 0
+    counts = [(r.n_plane_factors, len(r.plane_book.world), r.n_imu_factors,
+               r.n_vo_edges, r.plane_stack.n_predict) for r in runs]
+    assert counts[0] == counts[1] and counts[0][0] > 0
+    n = len(cpu_run.seq_ids)
+    np.testing.assert_allclose(card_run.values.pose_t[:n].cpu().numpy(),
+                               cpu_run.values.pose_t[:n].numpy(), rtol=0,
+                               atol=1e-8)
+    for a, b in zip(card_run.chi2_log.rows, cpu_run.chi2_log.rows):
+        assert a[:2] == b[:2]
+        assert abs(a[3] - b[3]) <= 1e-8 * max(1.0, abs(b[3]))
+
+
+def test_online_plane_free_replay_on_the_card_matches_the_cpu():
+    """The online fast path (no plane stack, the chi2 gate on) with the
+    default full-arena dense update on CUDA against the CPU, float64."""
+    from graph_slam_tpu_torch.datasets import make_vio_plane_scenario
+    from graph_slam_tpu_torch.pipelines import VioConfig, run_vio
+
+    dev = _cuda()
+    cfg = VioConfig(plane_mode="off", optimize_step=10, max_imu_window=32,
+                    bucket=64, chi2_vro_gate=True, final_batch=True)
+    runs = []
+    for device in ("cpu", dev):
+        log, times, stream, params, _, _ = make_vio_plane_scenario(
+            60, fail_every=20, render=False, device=device)
+        runs.append(run_vio(log, times, stream, params, cfg=cfg,
+                            device=device))
+    cpu_run, card_run = runs
+    assert card_run.values.pose_t.device.type == "cuda"
+    assert card_run.timers["fused_frame"]["calls"] == 59
+    assert (card_run.n_imu_factors, card_run.n_vo_edges) == \
+        (cpu_run.n_imu_factors, cpu_run.n_vo_edges)
+    n = len(cpu_run.seq_ids)
+    for f in ("pose_R", "pose_t", "vel", "bias"):
+        np.testing.assert_allclose(
+            getattr(card_run.values, f)[:n].cpu().numpy(),
+            getattr(cpu_run.values, f)[:n].numpy(), rtol=0, atol=1e-8,
+            err_msg=f)
     for a, b in zip(card_run.chi2_log.rows, cpu_run.chi2_log.rows):
         assert a[:2] == b[:2]
         assert abs(a[3] - b[3]) <= 1e-8 * max(1.0, abs(b[3]))

@@ -3,7 +3,7 @@ plane_mode="rescue")``, with the JAX package on the CPU in float64.
 
 Two cases at the shapes of ``tests/test_scan_rescue.py`` (eight frames,
 window 4, ``max_imu_window=64``, and ``bucket=16`` in the reference, which
-the port's ``VioConfig`` does not have), so the JAX replay compiles little
+the port's scan engine does not read), so the JAX replay compiles little
 beyond that file's programs:
 
 - frames: ``test_plane_node.simulate_frames(n_frames=8, fail_frame=4)``,

@@ -163,7 +163,8 @@ def test_rescue_without_a_source_is_plane_free(seq):
 
 
 @pytest.mark.parametrize("cfg,kwargs,err,match", [
-    (dict(engine="online"), {}, NotImplementedError, "ROADMAP queue 1"),
+    (dict(engine="online"), {"frames": lambda seq: None}, ValueError,
+     "intrinsics"),
     (dict(engine="scan", plane_mode="rescue", chi2_vro_gate=True),
      {"plane_obs_provider": lambda seq: []}, ValueError, "chi2_vro_gate"),
     (dict(engine="scan", plane_mode="always"), {}, ValueError, "always"),
