@@ -20,12 +20,35 @@ Phases, one JSON line each:
              closures failed) through ``run_pose_graph``, dense LM, float64;
 5. pcg     — the reference bench's headline configuration: 200 GN
              iterations, PCG-10, float32, on ``make_sphere_graph(2500)``;
-6. planes  — the plane-rescue propagation over rendered frames of the
+6. posegraph — the rest of the pose-graph backend: (a) ``run_g2o_file`` on
+             the g2o golden and the golden VRO log through
+             ``backend="g2o"`` and ``"gtsam"``, against their pins; (b) a
+             sphere2500-size graph (2,500 poses, 2,499 odometry edges,
+             2,500 loop closures, 5% of them corrupted) written with
+             ``write_g2o`` and read back through ``run_g2o_file(
+             loop_gate="pcm", init="chordal")``: every planted outlier
+             rejected, >= 95% of the true loops kept, chi2 and ATE within
+             1% of the solve without the planted rows, with PCM's device
+             and host-clique times, chordal and LM times and peak memory;
+             (c) ``gnc_optimize(kind="tls", solver="pcg")`` on that graph
+             without PCM (outliers rejected, chi2 within 1e-4 of the
+             outlier-free optimum, ATE within 1% after an LM polish over
+             its inliers), then ``run_pose_graph(loop_gate="pcm",
+             init="chordal", robust="gnc-tls")`` on a 500-pose sphere VRO
+             log with 5% of its loops corrupted; (d) the JAX bench's
+             ``chordal``, ``gather_pcg``, ``banded_direct`` and ``banded``
+             configurations in float32, each to chi2 < 0.1 e0; (e) its
+             ``multigraph`` fleet, 64 graphs of 250 poses, against each
+             graph's own ``gn_optimize``; (f) card against CPU in float64:
+             PCM's decisions, chordal poses, ``lm_optimize_g2o``'s history
+             and ``marginalize_poses`` on a 500-pose sphere. It launches no
+             hand-written kernel.
+7. planes  — the plane-rescue propagation over rendered frames of the
              two-plane room: 50 SR4000 frames through ``propagate_planes``
              and 10 RealSense frames through ``propagate_plane``, every call
              launching the region-grow kernel.
 
-7. vio    — the VIO scan replay, ``run_vio(engine="scan",
+8. vio    — the VIO scan replay, ``run_vio(engine="scan",
              plane_mode="off")``, on the plane-aided VIO scenario of 2,000
              frames (``--vio-frames``): 200 Hz VN100 IMU, 20 samples a
              frame, every 20th VO edge failed and carried by the IMU; a
@@ -36,7 +59,7 @@ Phases, one JSON line each:
              the replay's arena, a 200-frame replay and its LM from
              perturbed values, each on the card against the CPU; host
              syncs per record.
-8. rescue — the flagship, ``run_vio(engine="scan", plane_mode="rescue")``
+9. rescue — the flagship, ``run_vio(engine="scan", plane_mode="rescue")``
              with SR4000 frames of the two-plane room rendered on demand,
              on the same scenario at 2,000 frames (``--rescue-frames``)
              with every 100th VO edge failed and rescued by planes, the JAX
@@ -48,7 +71,7 @@ Phases, one JSON line each:
              replay on the card against the CPU, host syncs per rescue,
              the rescue's sub-phase times, how many predictions ran the
              fresh extraction, and a plane-free replay of the same log.
-9. online — the online engine, ``run_vio(engine="online")`` (the default
+10. online — the online engine, ``run_vio(engine="online")`` (the default
              of ``run_vio``), on the ``rescue`` phase's scenario at 2,000
              frames (``--online-frames``): (a) the flagship rescue at the
              JAX bench's ``compare_online`` configuration, cold and warm
@@ -63,18 +86,18 @@ Phases, one JSON line each:
              corridor, with flat per-update time; (f) a checkpoint of
              (a)'s graph saved and loaded bit-equal; host syncs per frame
              and per rescue.
-10. profile — the replays of phases 7, 8 and 9 on their scenarios'
+11. profile — the replays of phases 8, 9 and 10 on their scenarios'
              first 300 frames (timed in those phases) again under
              ``torch.profiler``: launches per record, device busy share,
              top device ops. It runs after every timed replay, as a
              profiler session slows the process's later launches.
 
-Phases 3-10 are the main path, driven on the port's default device (the
-card): the kernel's launch counter is set to 0 just before phases 3-6 and
-read just after, again around phase 7, which launches no hand-written
-kernel, around phase 8 and around phase 9, where each rescue whose
-previous frame had planes launches it once, and around each replay that
-phase 10 profiles. The region-grow kernel is timed on the fill
+Phases 3-11 are the main path, driven on the port's default device (the
+card): the kernel's launch counter is set to 0 just before phases 3-7 and
+read just after (phase 6 on its own is held to 0 launches), again around
+phase 8, which launches no hand-written kernel, around phase 9 and around
+phase 10, where each rescue whose previous frame had planes launches it
+once, and around each replay that phase 11 profiles. The region-grow kernel is timed on the fill
 inputs of real frames (phase ``frames``) and of a rescue, and the script
 prints the kernel summary line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the
@@ -414,6 +437,578 @@ def phase_pcg():
            "reference_chi2_drop_x": SPHERE_HEADLINE_DROP_REF,
            "wall_s": wall, "gn_iters_per_s": 200 / wall})
     _require(drop >= 100.0, f"PCG-10 headline chi2 dropped only {drop:.1f}x")
+    return {"error0": e0, "error": err, "wall_s": wall}
+
+
+# -- the pose-graph backend: g2o, PCM, chordal, GNC, solvers, fleet ---------
+
+PG_POSES = 2500            # make_sphere_graph poses of the robust solve
+PG_OUTLIERS = 0.05         # share of its loop closures corrupted
+PG_PIPELINE_POSES = 500    # _sphere_vro_log poses through the three options
+PG_HELD = 1e-9             # card vs CPU, float64
+PG_FLEET = (64, 250)       # bench.py's multigraph: graphs, poses each
+PG_MARG_POSES = 500        # the sphere of lm_optimize_g2o and marginalization
+G2O_BACKEND_PIN = 0.1673486302270372     # tests/test_g2o_schedule.py:91
+GTSAM_BACKEND_PIN = 5.613857156515794    # tests/test_g2o_schedule.py:88
+
+
+class _Timed:
+    """Wraps module functions, for the length of a ``with`` block, so that
+    each call's seconds (the card synchronised before and after) are summed
+    under a key; the last call's arguments and result are kept too."""
+
+    def __init__(self, *targets):
+        self.targets = targets        # (module, function name, key)
+        self.s, self.calls, self.last = {}, {}, {}
+        self._saved = []
+
+    def __enter__(self):
+        import torch
+
+        for module, name, key in self.targets:
+            fn = getattr(module, name)
+
+            def timed(*args, _fn=fn, _key=key, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.s[_key] = self.s.get(_key, 0.0) + time.perf_counter() - t0
+                self.calls[_key] = self.calls.get(_key, 0) + 1
+                self.last[_key] = (args, out)
+                return out
+
+            self._saved.append((module, name, fn))
+            setattr(module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self._saved):
+            setattr(module, name, fn)
+        self._saved.clear()
+
+
+def _corrupt_loops(graph, frac, seed=7, scale=3.0):
+    """``tests/test_pcm.py``'s ``_corrupt`` on the port's tables: ``frac``
+    of the active loop closures (rows with j - i > 1) get a random rotation
+    and a translation drawn at ``scale``. Returns (graph, bad rows, the
+    other loop rows)."""
+    import numpy as np
+    import torch
+
+    from graph_slam_tpu_torch.datasets.synthetic import _so3_exp
+
+    bt = graph.between
+    act, i, j = (x.cpu().numpy() for x in (bt.active, bt.i, bt.j))
+    idx = np.flatnonzero(act)
+    loops = idx[(j[idx] - i[idx]) > 1]
+    rng = np.random.default_rng(seed)
+    bad = rng.choice(loops, size=int(round(frac * len(loops))), replace=False)
+    R, t = bt.meas_R.cpu().numpy().copy(), bt.meas_t.cpu().numpy().copy()
+    for e in bad:
+        R[e] = _so3_exp(rng.normal(size=3))
+        t[e] = rng.normal(size=3) * scale
+    dev, dt = bt.meas_R.device, bt.meas_R.dtype
+    return graph._replace(between=bt._replace(
+        meas_R=torch.as_tensor(R, dtype=dt, device=dev),
+        meas_t=torch.as_tensor(t, dtype=dt, device=dev))), bad, \
+        np.setdiff1d(loops, bad)
+
+
+def _write_graph_g2o(path, graph, values):
+    """The graph's active between rows and its live poses as a g2o file."""
+    import numpy as np
+
+    from graph_slam_tpu_torch.core import so3
+    from graph_slam_tpu_torch.io import write_g2o
+
+    n = int(values.num_poses)
+    bt = graph.between
+    rows = np.flatnonzero(bt.active.cpu().numpy())
+    S = bt.sqrt_info.cpu().numpy()[rows]
+    q = so3.matrix_to_quat(bt.meas_R[rows]).cpu().numpy()
+    edges = zip(bt.i.cpu().numpy()[rows], bt.j.cpu().numpy()[rows],
+                bt.meas_t.cpu().numpy()[rows], q,
+                np.einsum("fki,fkj->fij", S, S))
+    write_g2o(path, values.pose_t[:n].cpu().numpy(),
+              so3.matrix_to_quat(values.pose_R[:n]).cpu().numpy(), edges)
+
+
+def _rms(est_t, gt_t):
+    import numpy as np
+
+    return float(np.sqrt(np.mean(np.sum((est_t - gt_t) ** 2, axis=1))))
+
+
+def _pg_goldens(out):
+    """(a) the g2o golden and the golden VRO log through both backends."""
+    from graph_slam_tpu_torch.graph import LMParams
+    from graph_slam_tpu_torch.io import read_vro_log
+    from graph_slam_tpu_torch.pipelines import run_g2o_file, run_pose_graph
+
+    pins = json.load(open(os.path.join(GOLDEN, "chi2.json")))
+    res = run_g2o_file(os.path.join(GOLDEN, "sphere200_noisy.g2o"),
+                       LMParams(relative_error_tol=1e-12,
+                                absolute_error_tol=1e-12), bucket=64)
+    log = read_vro_log(os.path.join(GOLDEN, "posegraph_vro.log"))
+    g2o = run_pose_graph(log, bucket=64, backend="g2o")
+    gtsam = run_pose_graph(log, bucket=64, backend="gtsam")
+    out.update({"g2o_error0": res.error0, "g2o_error": res.error,
+           "g2o_rel_err0": abs(res.error0 - pins["g2o_error0"])
+           / pins["g2o_error0"],
+           "g2o_rel_err": abs(res.error - pins["g2o_error"])
+           / pins["g2o_error"],
+           "vro_g2o_backend_error": g2o.error,
+           "vro_g2o_backend_rel_err": abs(g2o.error - G2O_BACKEND_PIN)
+           / G2O_BACKEND_PIN,
+           "vro_gtsam_backend_error": gtsam.error,
+           "vro_gtsam_backend_abs_err": abs(gtsam.error - GTSAM_BACKEND_PIN)})
+    _require(out["g2o_rel_err0"] <= 1e-6 and out["g2o_rel_err"] <= 1e-6,
+             "g2o golden chi2 outside 1e-6")
+    _require(out["vro_g2o_backend_rel_err"] <= 1e-4,
+             "backend='g2o' golden chi2 outside 1e-4")
+    _require(out["vro_gtsam_backend_abs_err"] <= 1e-6,
+             "backend='gtsam' golden chi2 outside 1e-6")
+
+
+def _pg_robust(tmp, rec):
+    """(b) PCM + chordal + LM through ``run_g2o_file`` on a sphere2500-size
+    graph with planted outliers, against the outlier-free solve; its
+    numbers go in ``rec``; returns what (c) and (f) reuse."""
+    import torch
+
+    from graph_slam_tpu_torch.datasets import make_sphere_graph
+    from graph_slam_tpu_torch.graph import init, pcm
+    from graph_slam_tpu_torch.pipelines import posegraph, run_g2o_file
+
+    graph, values, (Rs, ts) = make_sphere_graph(
+        PG_POSES, edges_per_pose=2.0, seed=0, dtype=torch.float64)
+    graph_bad, bad, good = _corrupt_loops(graph, PG_OUTLIERS)
+    # the outlier-free solve: the same graph with the planted rows removed
+    bt = graph_bad.between
+    keep = torch.ones_like(bt.active)
+    keep[torch.as_tensor(bad, device=keep.device)] = False
+    inlier_graph = graph_bad._replace(between=bt._replace(
+        active=bt.active & keep))
+    clean_path = os.path.join(tmp, "sphere2500_inliers.g2o")
+    bad_path = os.path.join(tmp, "sphere2500_outliers.g2o")
+    _write_graph_g2o(clean_path, inlier_graph, values)
+    _write_graph_g2o(bad_path, graph_bad, values)
+    timed = _Timed((pcm, "_loop_arrays", "pcm_upload"),
+                   (pcm, "_unary_m2", "pcm_unary"),
+                   (pcm, "_pairwise_m2", "pcm_pairwise"),
+                   (pcm, "max_clique", "pcm_clique"),
+                   (posegraph, "chordal_initialize", "chordal"),
+                   (init, "project_so3", "chordal_svd"),
+                   (posegraph, "lm_optimize", "lm"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed:
+        res = run_g2o_file(bad_path, loop_gate="pcm", init="chordal")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the first batched SVD of a process also pays cuSOLVER's set-up: the
+    # chordal step again, warm, on the gated graph
+    with _Timed((init, "project_so3", "chordal_svd_warm")) as warm:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        init.chordal_initialize(res.graph, values)
+        torch.cuda.synchronize()
+        chordal_warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clean = run_g2o_file(clean_path, init="chordal")
+    clean_s = time.perf_counter() - t0
+
+    n = PG_POSES
+    active = res.graph.between.active.cpu().numpy()
+    kept = float(active[good].mean())
+    ate = _rms(res.values.pose_t[:n].cpu().numpy(), ts)
+    ate_clean = _rms(clean.values.pose_t[:n].cpu().numpy(), ts)
+    ms = {k: v * 1e3 for k, v in timed.s.items()}
+    out = {"poses": n, "loops_L": len(good) + len(bad),
+           "outliers": len(bad), "outliers_rejected": int((~active[bad]).sum()),
+           "true_loops_kept": kept, "error0": res.error0, "error": res.error,
+           "error_outlier_free": clean.error,
+           "chi2_rel_to_outlier_free": abs(res.error - clean.error)
+           / clean.error,
+           "ate_m": ate, "ate_outlier_free_m": ate_clean,
+           "ate_rel_to_outlier_free": abs(ate - ate_clean) / ate_clean,
+           "pcm_device_ms": ms["pcm_unary"] + ms["pcm_pairwise"],
+           "pcm_unary_ms": ms["pcm_unary"],
+           "pcm_pairwise_ms": ms["pcm_pairwise"],
+           "pcm_upload_ms": ms["pcm_upload"],
+           "pcm_host_clique_ms": ms["pcm_clique"],
+           "chordal_ms": ms["chordal"], "chordal_svd_ms": ms["chordal_svd"],
+           "chordal_warm_ms": chordal_warm_s * 1e3,
+           "chordal_svd_warm_ms": warm.s["chordal_svd_warm"] * 1e3,
+           "lm_iterations": res.iterations, "lm_s": ms["lm"] / 1e3,
+           "wall_s": wall, "outlier_free_wall_s": clean_s,
+           "peak_mem_gb": peak}
+    rec.update(out)
+    _require(out["outliers_rejected"] == len(bad),
+             f"PCM kept {len(bad) - out['outliers_rejected']} planted "
+             "outliers")
+    _require(kept >= 0.95, f"PCM kept only {kept:.3f} of the true loops")
+    _require(out["chi2_rel_to_outlier_free"] <= 0.01
+             and out["ate_rel_to_outlier_free"] <= 0.01,
+             "the gated solve is not within 1% of the outlier-free one")
+    (lp, odo_cov), m2_card = timed.last["pcm_pairwise"]
+    m2o_card = timed.last["pcm_unary"][1]
+    return dict(graph_bad=graph_bad, inlier_graph=inlier_graph,
+                values=values, bad=bad, good=good, ts=ts, ate_clean=ate_clean,
+                error_clean=clean.error, gated=res.graph, lp=lp,
+                     odo_cov=odo_cov, m2_card=m2_card, m2o_card=m2o_card)
+
+
+def _pg_gnc(b, out):
+    """(c) GNC-TLS at full width on (b)'s corrupted graph without PCM, then
+    the three options together on a VRO log with corrupted loops; the
+    numbers go in ``out``."""
+    import torch
+
+    from graph_slam_tpu_torch.graph import (gn_optimize, gnc_optimize,
+                                            lm_optimize)
+
+    g = b["graph_bad"]
+    cand = (g.between.j - g.between.i) != 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gnc_optimize(g, b["values"], candidates=cand, kind="tls",
+                       solver="pcg", damping=1e-3)
+    inliers = res.inliers.cpu().numpy()
+    gnc_s = time.perf_counter() - t0
+    # the anneal's fixed budget (25 x 3 GN steps of PCG-50) leaves the
+    # sphere's low-frequency modes unconverged: chi2 sits within ~1e-5 of
+    # the optimum while ATE can differ by tens of percent, and the
+    # inlier graph alone under the same budget does the same. So ATE is
+    # held after an LM polish over GNC's inliers, and chi2 as it is.
+    bt = g.between
+    polish = lm_optimize(g._replace(between=bt._replace(
+        active=bt.active & res.inliers)), res.values)
+    budget = gn_optimize(b["inlier_graph"], b["values"], iterations=75,
+                         solver="pcg", damping=1e-3, pcg_iters=50)
+    ate = _rms(res.values.pose_t[:PG_POSES].cpu().numpy(), b["ts"])
+    ate_polish = _rms(polish.values.pose_t[:PG_POSES].cpu().numpy(), b["ts"])
+    out.update({
+        "gnc_s": gnc_s, "gnc_outliers_rejected":
+        int((~inliers[b["bad"]]).sum()),
+        "gnc_true_loops_rejected": int((~inliers[b["good"]]).sum()),
+        "gnc_error": float(res.error), "gnc_error_raw": float(res.error_raw),
+        "gnc_chi2_rel_to_outlier_free": abs(float(res.error)
+                                            - b["error_clean"])
+        / b["error_clean"],
+        "gnc_ate_m": ate, "same_budget_inlier_ate_m": _rms(
+            budget.values.pose_t[:PG_POSES].cpu().numpy(), b["ts"]),
+        "polished_ate_m": ate_polish, "polish_lm_iterations":
+        int(polish.iterations),
+        "polished_ate_rel_to_outlier_free": abs(ate_polish - b["ate_clean"])
+        / b["ate_clean"]})
+    _require(out["gnc_outliers_rejected"] == len(b["bad"]),
+             "GNC kept a planted outlier")
+    _require(out["gnc_chi2_rel_to_outlier_free"] <= 1e-4,
+             "GNC's chi2 is not within 1e-4 of the outlier-free optimum")
+    _require(out["polished_ate_rel_to_outlier_free"] <= 0.01,
+             "GNC's polished ATE is not within 1% of the outlier-free solve")
+    _pg_pipeline(out)
+
+
+def _pg_pipeline(out):
+    """``run_pose_graph(loop_gate="pcm", init="chordal", robust="gnc-tls")``
+    on ``_sphere_vro_log`` with 5% of its valid loop closures corrupted,
+    against a plain LM on the clean log."""
+    import numpy as np
+    import torch
+
+    from graph_slam_tpu_torch.config import SlamParams
+    from graph_slam_tpu_torch.core import se3
+    from graph_slam_tpu_torch.datasets.synthetic import _so3_exp
+    from graph_slam_tpu_torch.io import VROLog
+    from graph_slam_tpu_torch.pipelines import run_pose_graph
+
+    n = PG_PIPELINE_POSES
+    log, (Rs, ts), _ = _sphere_vro_log(n)
+    valid = log.valid
+    loops = np.flatnonzero(valid & (np.arange(len(log)) >= n - 1))
+    rng = np.random.default_rng(11)
+    bad = rng.choice(loops, size=int(round(PG_OUTLIERS * len(loops))),
+                     replace=False)
+    xi = log.xi.copy()
+    for k in bad:
+        T = se3.Pose(torch.as_tensor(_so3_exp(rng.normal(size=3))),
+                     torch.as_tensor(rng.normal(size=3) * 3.0))
+        xi[k] = se3.logmap(T).numpy()
+    bad_log = VROLog(log.id_to, log.id_from, xi, log.info)
+    # a failed loop record writes no row: record k is row k - (failed
+    # records before it); this log fails loops only
+    row = np.arange(len(log)) - np.concatenate([[0], np.cumsum(~valid)[:-1]])
+    good = np.setdiff1d(loops, bad)
+    t0 = time.perf_counter()
+    res = run_pose_graph(bad_log, SlamParams(robust="gnc-tls"),
+                         loop_gate="pcm", init="chordal")
+    wall = time.perf_counter() - t0
+    # the outlier-free solve: the same log without the corrupted records
+    keep = np.ones(len(log), bool)
+    keep[bad] = False
+    clean = run_pose_graph(VROLog(log.id_to[keep], log.id_from[keep],
+                                  log.xi[keep], log.info[keep]))
+    gt = (ts[res.seq_ids] - ts[0]) @ Rs[0]      # gauge: pose 0 at identity
+    ate = _rms(res.values.pose_t[:len(res.seq_ids)].cpu().numpy(), gt)
+    ate_clean = _rms(clean.values.pose_t[:len(clean.seq_ids)].cpu().numpy(),
+                     gt)
+    active = res.graph.between.active.cpu().numpy()
+    out.update({"pipeline_poses": n, "pipeline_loops": len(loops),
+           "pipeline_outliers": len(bad),
+           "pipeline_outliers_rejected": int((~active[row[bad]]).sum()),
+           "pipeline_true_loops_kept": float(active[row[good]].mean()),
+           "pipeline_ate_m": ate, "pipeline_ate_outlier_free_m": ate_clean,
+           "pipeline_ate_rel": abs(ate - ate_clean) / ate_clean,
+           "pipeline_s": wall})
+    _require(out["pipeline_outliers_rejected"] == len(bad),
+             "the pcm + chordal + gnc-tls pipeline kept a planted outlier")
+    _require(out["pipeline_true_loops_kept"] >= 0.95,
+             "the pipeline kept under 95% of the true loops")
+    _require(out["pipeline_ate_rel"] <= 0.01,
+             "the pipeline's ATE is not within 1% of the outlier-free solve")
+
+
+def _pg_bench_configs(pcg, out):
+    """(d) ``bench.py``'s chordal, gather_pcg, banded_direct and banded
+    configurations on ``make_sphere_graph(2500)`` in float32, each to the
+    bench's bar chi2 < 0.1 e0. ``pcg`` is the ``pcg`` phase's 200-GN run on
+    the same graph."""
+    import torch
+
+    from graph_slam_tpu_torch.datasets import make_sphere_graph
+    from graph_slam_tpu_torch.graph import (band_halfwidth,
+                                            banded_direct_gn_optimize,
+                                            banded_gn_optimize,
+                                            build_incidence,
+                                            chordal_initialize, gn_optimize,
+                                            total_error)
+
+    graph, values, _ = make_sphere_graph(2500, 4.0, seed=0,
+                                         dtype=torch.float32, bucket=256)
+    e0 = float(total_error(graph, values))
+    out["error0"] = e0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        err = float(fn())
+        return err, time.perf_counter() - t0
+
+    def chordal_path():
+        v1 = chordal_initialize(graph, values)
+        return gn_optimize(graph, v1, iterations=5, solver="pcg",
+                           damping=1e-3, pcg_iters=10).error
+
+    chordal_path()                                          # warm-up
+    err, wall = timed(chordal_path)
+    out["chordal"] = {"error": err, "wall_s": wall,
+                      "gn200_wall_s": pcg["wall_s"],
+                      "speedup_vs_gn200": pcg["wall_s"] / wall,
+                      "chi2_rel_to_gn200": (err - pcg["error"]) / pcg["error"]}
+
+    t0 = time.perf_counter()
+    inc = build_incidence(graph, values)
+    build_s = time.perf_counter() - t0
+    gn_optimize(graph, values, iterations=2, solver="pcg", damping=1e-3,
+                pcg_iters=10, inc=inc)                      # warm-up
+    err, wall = timed(lambda: gn_optimize(
+        graph, values, iterations=200, solver="pcg", damping=1e-3,
+        pcg_iters=10, inc=inc).error)
+    out["gather_pcg"] = {"error": err, "wall_s": wall,
+                         "gn_iters_per_s": 200 / wall,
+                         "incidence_build_s": build_s,
+                         "incidence_k": int(inc.idx.shape[1]),
+                         "chi2_rel_to_scatter": abs(err - pcg["error"])
+                         / pcg["error"]}
+    _require(out["gather_pcg"]["chi2_rel_to_scatter"] <= 1e-3,
+             "the gather path's chi2 is not within 1e-3 of the scatter's")
+
+    W = band_halfwidth(graph)
+    banded_direct_gn_optimize(graph, values, iterations=1, band_w=W,
+                              damping=1e-6)                 # warm-up
+    err, wall = timed(lambda: banded_direct_gn_optimize(
+        graph, values, iterations=50, band_w=W, damping=1e-6)[1])
+    conv = None
+    for k in (2, 4, 8):
+        if float(banded_direct_gn_optimize(graph, values, iterations=k,
+                                           band_w=W, damping=1e-6)[1]) \
+                < 0.1 * e0:
+            conv = k
+            break
+    out["banded_direct"] = {"error": err, "wall_s": wall,
+                            "gn_iters_per_s": 50 / wall, "band_halfwidth": W,
+                            "superblock": max(W, 32),
+                            "iters_to_0.1x_chi2": conv}
+
+    banded_gn_optimize(graph, values, iterations=2, band_w=W, damping=1e-3,
+                       pcg_iters=10)                        # warm-up
+    err, wall = timed(lambda: banded_gn_optimize(
+        graph, values, iterations=200, band_w=W, damping=1e-3,
+        pcg_iters=10)[1])
+    out["banded"] = {"error": err, "wall_s": wall,
+                     "gn_iters_per_s": 200 / wall}
+    for name in ("chordal", "gather_pcg", "banded_direct", "banded"):
+        _require(out[name]["error"] < 0.1 * e0,
+                 f"{name}: chi2 {out[name]['error']:.4g} not below 0.1 e0 "
+                 f"= {0.1 * e0:.4g}")
+
+
+def _pg_fleet(out):
+    """(e) ``bench.py``'s multigraph: 64 graphs of 250 poses, PCG-10, 50
+    iterations, float32, against the single-graph rate."""
+    import torch
+
+    from graph_slam_tpu_torch.datasets import make_sphere_graph
+    from graph_slam_tpu_torch.graph import (gn_optimize, gn_optimize_many,
+                                            stack_pytrees, total_error)
+
+    b, n = PG_FLEET
+    pairs = [make_sphere_graph(n, 4.0, seed=s, dtype=torch.float32,
+                               bucket=64)[:2] for s in range(b)]
+    graphs = stack_pytrees([g for g, _ in pairs])
+    arenas = stack_pytrees([v for _, v in pairs])
+    kw = dict(solver="pcg", damping=1e-3, pcg_iters=10)
+    gn_optimize_many(graphs, arenas, iterations=2, **kw)    # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gn_optimize_many(graphs, arenas, iterations=50, **kw)
+    errs = res.error.cpu().numpy()
+    fleet_s = time.perf_counter() - t0
+    gn_optimize(*pairs[0], iterations=2, **kw)              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(gn_optimize(*pairs[0], iterations=50, **kw).error)
+    single_s = time.perf_counter() - t0
+    e0s = [float(total_error(g, v)) for g, v in pairs]
+    worst = max(float(e / e0) for e, e0 in zip(errs, e0s))
+    held = {}
+    for k in (0, b // 3, 2 * b // 3, b - 1):
+        single = float(gn_optimize(*pairs[k], iterations=50, **kw).error)
+        held[k] = abs(float(errs[k]) - single) / single
+    out.update({"graphs": b, "poses": n, "iterations": 50,
+                "fleet_s": fleet_s,
+           "fleet_graph_gn_iters_per_s": b * 50 / fleet_s,
+           "single_graph_gn_iters_per_s": 50 / single_s,
+           "fleet_vs_single": (b * 50 / fleet_s) / (50 / single_s),
+           "worst_chi2_over_e0": worst,
+           "own_gn_rel_chi2": {str(k): v for k, v in held.items()}})
+    _require(worst < 0.1, f"a fleet graph reached only {worst:.3g} e0")
+    _require(max(held.values()) <= 1e-4,
+             "a fleet graph is not within 1e-4 of its own gn_optimize")
+
+
+def _pg_card_vs_cpu(b, out):
+    """(f) float64 card against CPU: (b)'s PCM decisions, chordal poses,
+    ``lm_optimize_g2o``'s history on a 500-pose sphere, and
+    ``marginalize_poses`` of every other interior pose of it, optimized."""
+    import numpy as np
+    import torch
+
+    from graph_slam_tpu_torch.datasets import make_sphere_graph
+    from graph_slam_tpu_torch.graph import (chordal_initialize, gn_optimize,
+                                            lm_optimize_g2o,
+                                            marginalize_poses, pcm,
+                                            total_error)
+    from graph_slam_tpu_torch.utils import chi2_quantile
+
+    # PCM: the host clique and mask are numpy over the device's m2, so the
+    # card's decisions equal the CPU's exactly when every unary and pair
+    # test falls the same way on both
+    lp_cpu = _to(b["lp"], "cpu")
+    t0 = time.perf_counter()
+    m2o = pcm._unary_m2(lp_cpu, b["odo_cov"]).numpy()
+    m2 = pcm._pairwise_m2(lp_cpu, b["odo_cov"]).numpy()
+    cpu_s = time.perf_counter() - t0
+    m2o_card = b["m2o_card"].cpu().numpy()
+    m2_card = b["m2_card"].cpu().numpy()
+    thr = chi2_quantile(6, 1e-4)
+    out["pcm_unary_bit_equal"] = bool(((m2o <= thr) == (m2o_card <= thr))
+                                      .all())
+    adj, adj_card = (np.maximum(x, x.T) <= thr for x in (m2, m2_card))
+    out["pcm_pairs_bit_equal"] = bool((adj == adj_card).all())
+    # reported, not gated: an outlier pair's m2 reaches 1e5 through a log
+    # near pi, and card and CPU round it apart by ~1e-9 relative
+    scale = np.maximum(np.abs(m2), 1.0)
+    out["pcm_m2_max_rel_err"] = float((np.abs(m2_card - m2) / scale).max())
+    out["pcm_cpu_s"] = cpu_s
+    _require(out["pcm_unary_bit_equal"] and out["pcm_pairs_bit_equal"],
+             "PCM's decisions differ between the card and the CPU")
+
+    g, v = b["gated"], b["values"]
+    ch = chordal_initialize(g, v)
+    ch_cpu = chordal_initialize(_to(g, "cpu"), _to(v, "cpu"))
+    out["chordal_max_abs_err"] = max(
+        float((getattr(ch, f).cpu() - getattr(ch_cpu, f)).abs().max())
+        for f in ("pose_R", "pose_t"))
+
+    g5, v5, _ = make_sphere_graph(PG_MARG_POSES, 4.0, seed=0,
+                                  dtype=torch.float64)
+    h = lm_optimize_g2o(g5, v5).history.cpu().numpy()
+    h_cpu = lm_optimize_g2o(_to(g5, "cpu"), _to(v5, "cpu")).history.numpy()
+    out["lm_g2o_history_max_rel_err"] = float(np.max(np.abs(h - h_cpu)
+                                                     / h_cpu))
+
+    full = gn_optimize(g5, v5, iterations=10, damping=1e-9).values
+    drop = np.arange(1, PG_MARG_POSES - 1, 2)
+    t0 = time.perf_counter()
+    m_card = marginalize_poses(g5, full, drop)
+    marg_s = time.perf_counter() - t0
+    m_cpu = marginalize_poses(_to(g5, "cpu"), _to(full, "cpu"), drop)
+    worst = 0.0
+    for name in ("prior_pose", "between"):
+        for a, c in zip(getattr(m_card[0], name), getattr(m_cpu[0], name)):
+            a, c = a.cpu(), c.cpu()
+            if a.is_floating_point():
+                worst = max(worst, float(((a - c).abs() / c.abs().clamp(
+                    min=1.0)).max()) if a.numel() else 0.0)
+            else:
+                _require(torch.equal(a, c), f"marginalized {name} indices "
+                         "differ between the card and the CPU")
+    e_card = float(total_error(*m_card[:2]))
+    e_cpu = float(total_error(*m_cpu[:2]))
+    out.update({"marginalized_poses": len(drop),
+                "marginalize_s": marg_s,
+                "marginalized_between_rows":
+                    int(m_card[0].between.active.sum()),
+                "marginalize_table_max_rel_err": worst,
+                "marginalize_chi2_rel_err": abs(e_card - e_cpu) / e_cpu})
+    for key in ("chordal_max_abs_err",
+                "lm_g2o_history_max_rel_err", "marginalize_table_max_rel_err",
+                "marginalize_chi2_rel_err"):
+        _require(out[key] <= PG_HELD, f"{key} = {out[key]:.3g} above "
+                 f"{PG_HELD}")
+
+
+def phase_posegraph(pcg):
+    """The pose-graph backend on the card: (a) goldens, (b) a sphere2500-size
+    robust solve through ``run_g2o_file``, (c) GNC, (d) the bench's solver
+    configurations, (e) the fleet, (f) card against CPU. The phase's line
+    is printed whether or not a check fails, with what was measured."""
+    import torch
+
+    from graph_slam_tpu_torch.planes.region_grow import region_grow
+
+    t_phase = time.perf_counter()
+    out = {"phase": "posegraph"}
+    try:
+        _pg_goldens(out.setdefault("goldens", {}))
+        with tempfile.TemporaryDirectory() as tmp:
+            b = _pg_robust(tmp, out.setdefault("robust", {}))
+        _pg_gnc(b, out.setdefault("gnc", {}))
+        _pg_card_vs_cpu(b, out.setdefault("card_vs_cpu", {}))
+        del b
+        torch.cuda.empty_cache()
+        _pg_bench_configs(pcg, out.setdefault("bench_configs", {}))
+        _pg_fleet(out.setdefault("fleet", {}))
+    finally:
+        out["seconds"] = time.perf_counter() - t_phase
+        _emit(out)
+    _require(region_grow.launches == 0,
+             "the pose-graph phase launched region_grow")
 
 
 def _camera_path(n):
@@ -1679,7 +2274,11 @@ def main(argv=None):
     region_grow.launches = 0
     phase_golden()
     phase_sphere()
-    phase_pcg()
+    pcg = phase_pcg()
+    launches = region_grow.launches
+    region_grow.launches = 0
+    phase_posegraph(pcg)
+    region_grow.launches = launches
     phase_planes()
     launches = region_grow.launches
     _require(launches > 0, "the main path never launched region_grow")

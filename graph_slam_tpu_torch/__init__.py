@@ -6,28 +6,33 @@ relative path. It imports torch and numpy, never jax or ``graph_slam_tpu``
 (importing any ``graph_slam_tpu.*`` module imports jax), so the numpy-only
 pieces it needs are copied, with their source named in each docstring.
 
-Ported so far: the pose-graph backend (``core``, ``noise``, ``graph``,
-``datasets.synthetic``, ``pipelines.posegraph``, ``io.vro_log``), the
-plane-rescue propagation (``planes``) with its hand-written CUDA region
-grow (``csrc/region_grow.cu``, built by ``kernels.build``), and IMU
-preintegration with the VIO scan engine without planes (``imu``,
-``core.extrinsics``, ``graph.online``, ``pipelines.vio``).
+Ported so far:
 
-Numerics set on import, mirroring ``graph_slam_tpu/__init__.py`` (which
-forces full-precision matmuls because reduced precision diverges the
-estimator) and ``tests/conftest.py`` (x64):
+- the pose-graph backend: ``core``, ``noise``, the factor arenas, dense,
+  PCG and gather-PCG LM/GN, g2o's chunked LM (``graph.lm``), chordal
+  initialization (``graph.init``), PCM loop gating (``graph.pcm``), GNC
+  (``graph.gnc``), the banded solvers (``graph.banded``), fleet GN
+  (``graph.batch``), pose marginalization (``graph.sparsify``),
+  ``pipelines.posegraph`` with ``run_g2o_file``, ``io.vro_log`` and
+  ``io.trajectory``;
+- IMU preintegration (``imu``, ``core.extrinsics``) and both VIO engines
+  (``pipelines.vio``: the online engine, the default, and the scan
+  engine), with the fixed-lag and incremental optimizers
+  (``graph.online``);
+- the plane stack (``planes``): extraction, association, plane nodes and
+  the plane rescue, whose region grow is a hand-written CUDA kernel
+  (``csrc/region_grow.cu``, built by ``kernels.build``).
 
-- the default floating dtype is float64;
-- TF32 is off for CUDA matmuls and cuDNN convolutions.
+Importing the package changes no process-wide torch setting: tensors
+default to whatever dtype the caller has set (entry points take
+``dtype=``, float64 by default, as the reference's tests run x64), and
+float32 matmuls keep torch's default full precision, TF32 off, unless the
+application has chosen otherwise (``torch.set_float32_matmul_precision``).
+The reference forces full-precision matmuls because reduced precision
+diverges the estimator (``graph_slam_tpu/__init__.py``).
 """
 
 __version__ = "0.1.0"
-
-import torch as _torch
-
-_torch.set_default_dtype(_torch.float64)
-_torch.backends.cuda.matmul.allow_tf32 = False
-_torch.backends.cudnn.allow_tf32 = False
 
 from . import core
 from .core import se3, so3, Pose

@@ -1,9 +1,11 @@
 """Configuration dataclasses — a copy of ``graph_slam_tpu/config.py:26-95``.
 
 Copied rather than imported: importing ``graph_slam_tpu.config`` runs
-``graph_slam_tpu/__init__.py``, which imports jax. Only ``SlamParams``,
-``CameraIntrinsics`` and the camera presets are here; the launch-file
-presets and JSON loading are not ported yet.
+``graph_slam_tpu/__init__.py``, which imports jax. ``SlamParams`` (every
+``robust`` choice, GNC included, is ported), ``CameraIntrinsics`` and the
+camera presets are here. The launch-file presets and their JSON loading
+(``preset_names``, ``load_params``...) come with the CLI, their only
+caller (ROADMAP queue 1, item F3).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ class SlamParams:
     optimizer: str = "lm"            # "lm" | "gn"
     incremental: bool = True         # ISAM2-equivalent incremental updates
     # robust handling of corrupted edges: None, "huber" (per-row Huber(k)),
-    # or "gnc-tls" / "gnc-gm" (not ported yet)
+    # or "gnc-tls" / "gnc-gm" (graduated non-convexity over loop closures)
     robust: Optional[str] = None
     robust_k: float = 1.345
 

@@ -211,21 +211,24 @@ def make_vio_plane_scenario(n_frames: int = 200, per: int = 20,
     m = n_frames - 1
     acc_w = torch.as_tensor(acc[:m * per].reshape(m, per, 3))
     gyr_w = torch.as_tensor(gyr[:m * per].reshape(m, per, 3))
+    f64 = torch.float64
     parts = []
     for lo in range(0, m, 2048):
         hi = min(m, lo + 2048)
-        st0 = init_preint(torch.zeros(hi - lo, 6), cpu, device="cpu")
-        parts.append(integrate_segment(st0, acc_w[lo:hi], gyr_w[lo:hi],
-                                       torch.full((hi - lo, per), dt), cpu))
+        st0 = init_preint(torch.zeros(hi - lo, 6, dtype=f64), cpu,
+                          device="cpu")
+        parts.append(integrate_segment(
+            st0, acc_w[lo:hi], gyr_w[lo:hi],
+            torch.full((hi - lo, per), dt, dtype=f64), cpu))
     st = PreintState(*(torch.cat(x) for x in zip(*parts))) if parts else None
     Rs = np.empty((n_frames, 3, 3))
     ts = np.empty((n_frames, 3))
-    X = se3.Pose(torch.eye(3), torch.zeros(3))
-    vel = torch.zeros(3)
+    X = se3.Pose(torch.eye(3, dtype=f64), torch.zeros(3, dtype=f64))
+    vel = torch.zeros(3, dtype=f64)
     Rs[0], ts[0] = np.eye(3), np.zeros(3)
     for f in range(1, n_frames):
         X, vel = predict_navstate(PreintState(*(x[f - 1] for x in st)), X,
-                                  vel, torch.zeros(6), cpu.gravity)
+                                  vel, torch.zeros(6, dtype=f64), cpu.gravity)
         Rs[f], ts[f] = X.R.numpy(), X.t.numpy()
 
     scene = [(np.array([0.0, 0.0, 1.0, -4.0]), 150.0),

@@ -11,9 +11,14 @@ device sync per trial).
 
 Solvers: ``"dense"`` assembles H and g by scatter-add and solves by
 Cholesky; ``"pcg"`` is the fused path (per-factor JᵀJ blocks once per
-linearization, 3x3 block-Jacobi preconditioner, fixed-trip CG). On CUDA the
-scatter-adds are atomics, so float sums are taken in a run-dependent order.
-The ``Incidence`` gather path and ``lm_optimize_g2o`` are not ported yet.
+linearization, 3x3 block-Jacobi preconditioner, fixed-trip CG); with an
+``Incidence`` (``graph.sparsity``) the PCG path accumulates by gather only,
+with a Jacobi preconditioner, as the reference's. On CUDA the scatter-adds
+are atomics, so float sums are taken in a run-dependent order.
+
+``lm_optimize_g2o`` is g2o's schedule: LM iterations in chunks, the damping
+re-initialised at the start of each chunk, Nielsen's accept/reject rule;
+its nested loops are host loops too, one host read per trial.
 """
 
 from __future__ import annotations
@@ -24,10 +29,13 @@ from typing import NamedTuple
 import torch
 
 from . import solve
+from .assemble import dense_hg, gradient_of
 from .factors import FactorGraph, linearize_blocks, total_error
-from .variables import VariableArena, retract_all, used_slot_mask
+from .sparsity import Incidence, diag_gather, gradient_gather, hvp_fn_gather
+from .variables import VariableArena, layout_of, retract_all, used_slot_mask
 
-__all__ = ["LMParams", "LMResult", "lm_optimize", "gn_optimize"]
+__all__ = ["LMParams", "LMResult", "lm_optimize", "lm_optimize_g2o",
+           "gn_optimize"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,38 +60,51 @@ class LMResult(NamedTuple):
     iterations: int
     lam: float
     converged: bool
+    history: torch.Tensor | None = None   # chi2 after each GN step / chunk
 
 
-def _gradient(blocks, mask):
-    g = torch.zeros_like(mask)
-    for r, J, cols in blocks:
-        g.index_add_(0, cols.reshape(-1),
-                     torch.einsum("fei,fe->fi", J, r).reshape(-1))
-    return g
+def _anchored_slot_mask(graph: FactorGraph, values: VariableArena):
+    """Boolean (dim,) mask of tangent slots held by a near-rigid pose prior.
 
-
-def _dense_hg(blocks, mask):
-    """Dense GN normal equations (H, g) from linearized blocks.
-
-    Unused tangent slots are pinned with an identity diagonal so H stays
-    nonsingular under arena padding. Never forms (P, P, 6, 6) blocks: each
-    factor's (td, td) JᵀJ is scattered straight into the flat (D, D) H.
+    g2o marks its gauge with ``setFixed`` (vertex rows never enter H);
+    the builder pins the gauge with a tight prior instead. Any pose
+    carrying sqrt-information above ~1e4 (sigma below ~1e-4) plays the
+    fixed-vertex role, wherever it sits in the arena, so that
+    ``lambda0 = tau * max_i H_ii`` stays sane for graphs anchored
+    elsewhere than pose 0.
     """
-    H = torch.diag(1.0 - mask)
-    for r, J, cols in blocks:
-        td = cols.shape[1]
-        rows_idx = cols[:, :, None].expand(-1, td, td)
-        cols_idx = cols[:, None, :].expand(-1, td, td)
-        H.index_put_((rows_idx.reshape(-1), cols_idx.reshape(-1)),
-                     torch.einsum("fei,fej->fij", J, J).reshape(-1),
-                     accumulate=True)
-    return H, _gradient(blocks, mask)
+    lay = layout_of(values)
+    anchored = torch.zeros(lay.dim, dtype=values.pose_t.dtype,
+                           device=values.pose_t.device)
+    pp = graph.prior_pose
+    if pp.idx.shape[0]:
+        tight = pp.active & (torch.diagonal(
+            pp.sqrt_info, dim1=-2, dim2=-1).amax(dim=1) > 1e4)
+        cols = lay.pose_cols(pp.idx)
+        anchored.index_put_((cols.reshape(-1),),
+                            tight.repeat_interleave(6).to(anchored.dtype),
+                            accumulate=True)
+    return anchored > 0
 
 
-def _solvers(blocks, mask, params: LMParams):
-    """Return (solve(lam) -> delta, hmul(delta) -> H delta, g)."""
+def _solvers(blocks, mask, params: LMParams, inc: Incidence | None = None):
+    """Return (solve(lam) -> delta, hmul(delta) -> H delta, g).
+
+    With an ``Incidence`` the PCG path accumulates by gather only
+    (Jacobi preconditioner); otherwise scatter-add is used.
+    """
+    if inc is not None and params.solver == "pcg":
+        g = gradient_gather(blocks, inc, mask.dtype)
+
+        def solve_fn(lam):
+            return solve.solve_pcg(hvp_fn_gather(blocks, inc, mask, lam), g,
+                                   diag_gather(blocks, inc, mask, lam),
+                                   params.pcg_iters)
+
+        return solve_fn, hvp_fn_gather(blocks, inc, mask, 0.0), g
+
     if params.solver == "dense":
-        H, g = _dense_hg(blocks, mask)
+        H, g = dense_hg(blocks, mask)
 
         def solve_fn(lam):
             return solve.solve_dense(H, g, lam)
@@ -96,7 +117,7 @@ def _solvers(blocks, mask, params: LMParams):
     if params.solver != "pcg":
         raise ValueError(f"unknown solver {params.solver!r}")
 
-    g = _gradient(blocks, mask)
+    g = gradient_of(blocks, mask)
     # per-factor JᵀJ blocks once per linearization; each CG iteration is
     # then one batched (td, td) matvec and a scatter-add
     pre = [(torch.einsum("fei,fej->fij", J, J), cols) for r, J, cols in blocks]
@@ -185,18 +206,88 @@ def lm_optimize(graph: FactorGraph, values: VariableArena,
     return LMResult(values, error, it, lam, done)
 
 
+def lm_optimize_g2o(graph: FactorGraph, values: VariableArena,
+                    total_iters: int = 20, chunks: int = 10,
+                    tau: float = 1e-5, max_trials: int = 10) -> LMResult:
+    """g2o ``CGraphG2O::optimizeGraph`` semantics: ``total_iters`` LM
+    iterations executed as ``chunks`` calls of ``optimize(ceil(total /
+    chunks))``.
+
+    The chunking is semantic: g2o's ``OptimizationAlgorithmLevenberg``
+    re-initialises its damping at the start of every ``optimize()`` call
+    (``lambda0 = tau * max_i H_ii`` over the free variables, tau = 1e-5)
+    and adapts it with the Marquardt-Nielsen schedule inside the call
+    (accept: ``lam *= max(1/3, 1 - (2 rho - 1)^3)``, ni = 2; reject:
+    ``lam *= ni``, ``ni *= 2``). So the chi2 trajectory differs from
+    ``lm_optimize``'s though both reach the same optimum. ``history``
+    holds the chi2 after each chunk, (chunks,). Each trial's acceptance is
+    read on the host once; lambda and ni stay on the device.
+    """
+    err = total_error(graph, values)
+    iters_per_chunk = -(-total_iters // chunks)
+    mask = used_slot_mask(values)
+    # slots pinned by a near-rigid prior play g2o's fixed-vertex role:
+    # their ~1e12 H_ii would inflate lambda0 and stall the schedule
+    anchored = _anchored_slot_mask(graph, values)
+    hist = []
+    for _ in range(chunks):
+        ni = torch.full_like(err, 2.0)
+        for k in range(iters_per_chunk):
+            H, g = dense_hg(linearize_blocks(graph, values), mask)
+            if k == 0:
+                diag_free = torch.where(anchored, torch.zeros_like(mask),
+                                        torch.diagonal(H))
+                lam = tau * torch.max(diag_free)
+            for _ in range(max_trials):
+                delta = solve.solve_dense(H, g, lam)
+                cand = retract_all(values, delta)
+                cand_err = total_error(graph, cand)
+                # g2o's gain ratio: rho = (F(x) - F(x+d)) / (d^T(lam d - g))
+                denom = torch.dot(delta, lam * delta - g)
+                rho = (err - cand_err) / torch.where(
+                    denom != 0, denom, torch.ones_like(denom))
+                ok = (rho > 0) & torch.isfinite(cand_err)
+                scale = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
+                                    min=1.0 / 3.0)
+                lam = torch.where(ok, lam * scale, lam * ni)
+                ni = torch.where(ok, torch.full_like(ni, 2.0), ni * 2.0)
+                if bool(ok):
+                    values, err = cand, cand_err
+                    break
+        hist.append(err)
+    return LMResult(values, err, total_iters, 0.0, True, torch.stack(hist))
+
+
 def gn_optimize(graph: FactorGraph, values: VariableArena,
                 iterations: int = 10, solver: str = "dense",
-                damping: float = 0.0, pcg_iters: int = 250) -> LMResult:
+                damping: float = 0.0, pcg_iters: int = 250,
+                inc: Incidence | None = None, update_mask=None,
+                return_history: bool = False) -> LMResult:
     """Plain Gauss–Newton with a fixed trip count (the throughput unit).
 
-    The reference's ``update_mask``, ``Incidence`` and ``return_history``
-    options are not ported yet.
+    ``update_mask`` (optional, (tangent_dim,)) freezes variables: the
+    Jacobian columns of masked-out slots are zeroed before assembly, so
+    their step solves to exactly 0 and the step is Gauss-Newton on the
+    free subset with the frozen variables as constants. ``inc`` routes the
+    PCG solver through the gather path. ``return_history`` puts the chi2
+    after each step in ``history``, (iterations,).
     """
     params = LMParams(solver=solver, pcg_iters=pcg_iters)
+    hist = []
     for _ in range(iterations):
         blocks = linearize_blocks(graph, values)
-        solve_fn, _, _ = _solvers(blocks, used_slot_mask(values), params)
+        mask = used_slot_mask(values)
+        if update_mask is not None:
+            um = update_mask.to(mask.dtype)
+            mask = mask * um
+            blocks = [(r, J * um[cols][:, None, :], cols)
+                      for r, J, cols in blocks]
+        solve_fn, _, _ = _solvers(blocks, mask, params, inc)
         values = retract_all(values, solve_fn(damping))
+        if return_history:
+            hist.append(total_error(graph, values))
+    if return_history:
+        return LMResult(values, hist[-1], iterations, damping, True,
+                        torch.stack(hist))
     return LMResult(values, total_error(graph, values), iterations, damping,
                     True)

@@ -75,7 +75,7 @@ def init_preint(bias_hat, params: ImuParams, *, dtype=torch.float64,
     The bias block of the covariance starts at ``bias_acc_omega_init``.
     """
     device = resolve(device)
-    b = torch.as_tensor(bias_hat, device=device).to(dtype)
+    b = torch.as_tensor(bias_hat, dtype=dtype, device=device)
     batch = b.shape[:-1]
 
     def eye3():
@@ -193,7 +193,7 @@ def _step(state: PreintState, acc, gyr, dt, params: ImuParams):
 
 
 def _as(x, like):
-    return torch.as_tensor(x, device=like.device).to(like.dtype)
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
 
 def integrate_segment(state: PreintState, acc, gyr, dt,

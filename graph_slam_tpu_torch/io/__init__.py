@@ -1,5 +1,17 @@
-"""Log IO of the port (``graph_slam_tpu/io`` counterpart)."""
+"""Log IO of the port (``graph_slam_tpu/io`` counterpart): VRO logs, and
+trajectory, PLY, g2o and marginals files."""
 
-from .vro_log import FAILED_INFO_SENTINEL, VROLog, read_vro_log, write_vro_log
+from .trajectory import (Trajectory, read_g2o, read_marginals,
+                         read_trajectory, write_g2o, write_graph_summary,
+                         write_marginals, write_ply_points, write_trajectory,
+                         write_trajectory_ply)
+from .vro_log import (FAILED_INFO_SENTINEL, VROLog, failed_edge, read_vro_log,
+                      write_vro_log)
 
-__all__ = ["VROLog", "read_vro_log", "write_vro_log", "FAILED_INFO_SENTINEL"]
+__all__ = [
+    "VROLog", "read_vro_log", "write_vro_log", "failed_edge",
+    "FAILED_INFO_SENTINEL",
+    "Trajectory", "read_trajectory", "write_trajectory", "write_ply_points",
+    "write_trajectory_ply", "write_g2o", "read_g2o", "write_graph_summary",
+    "write_marginals", "read_marginals",
+]

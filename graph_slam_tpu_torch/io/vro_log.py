@@ -20,7 +20,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["VROLog", "read_vro_log", "write_vro_log", "FAILED_INFO_SENTINEL"]
+__all__ = ["VROLog", "read_vro_log", "write_vro_log", "failed_edge",
+           "FAILED_INFO_SENTINEL"]
 
 FAILED_INFO_SENTINEL = 10000.0
 
@@ -75,3 +76,9 @@ def write_vro_log(path: str, log: VROLog) -> None:
             parts += [repr(float(v)) for v in log.xi[k]]
             parts += [repr(float(v)) for v in log.info[k][_TRIU]]
             f.write(" ".join(parts) + " \n")
+
+
+def failed_edge(id_to: int, id_from: int) -> tuple:
+    """An identity edge row with the failure sentinel information."""
+    info = np.eye(6) * FAILED_INFO_SENTINEL
+    return id_to, id_from, np.zeros(6), info

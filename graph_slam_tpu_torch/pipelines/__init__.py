@@ -1,8 +1,10 @@
 """Offline pipelines of the port (``graph_slam_tpu/pipelines`` counterpart)."""
 
-from .posegraph import (PoseGraphResult, build_pose_graph, run_pose_graph,
+from .posegraph import (PoseGraphResult, build_graph_from_g2o,
+                        build_pose_graph, run_g2o_file, run_pose_graph,
                         trajectory_arrays)
 from .vio import VioConfig, VioResult, run_vio
 
 __all__ = ["PoseGraphResult", "build_pose_graph", "run_pose_graph",
-           "trajectory_arrays", "VioConfig", "VioResult", "run_vio"]
+           "build_graph_from_g2o", "run_g2o_file", "trajectory_arrays",
+           "VioConfig", "VioResult", "run_vio"]

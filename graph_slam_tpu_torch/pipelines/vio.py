@@ -158,7 +158,8 @@ def _run_vio_online(log: VROLog, t_of, imu: ImuStream,
             cfg.static_init_samples)
     else:
         init_R, init_bias = np.eye(3), np.zeros(6)
-    pose0 = se3.Pose(torch.as_tensor(init_R), torch.zeros(3))
+    pose0 = se3.Pose(torch.as_tensor(init_R),
+                     torch.zeros(3, dtype=torch.float64))
 
     seq2graph: dict[int, int] = {}
     seq_ids: list[int] = []

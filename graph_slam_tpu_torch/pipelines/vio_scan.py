@@ -243,7 +243,8 @@ def _run_vio_scan(log: VROLog, t_of, imu: ImuStream,
     arena = empty_arena(pose_cap=P, vel_cap=P, bias_cap=P,
                         plane_cap=plane_var_cap, dtype=dtype, device=device)
     og = OnlineGraph(graph, arena)
-    pose0 = se3.Pose(torch.as_tensor(init_R), torch.zeros(3))
+    pose0 = se3.Pose(torch.as_tensor(init_R),
+                     torch.zeros(3, dtype=torch.float64))
     og.set_pose(0, pose0)
     og.set_vel(0, np.zeros(3))
     og.set_bias(0, init_bias)

@@ -78,7 +78,7 @@ def match_plane(plane_obs, landmark_world_list, pose_world: se3.Pose,
     k = len(landmark_world_list)
     pred = oriented_plane.transform(cands, pose_world.R.expand(k, 3, 3),
                                     pose_world.t.expand(k, 3))
-    ni = torch.as_tensor(plane_obs, device=pred.device)
+    ni = torch.as_tensor(plane_obs, dtype=pred.dtype, device=pred.device)
     cosa = pred[:, :3] @ ni[:3]
     sign = torch.where(cosa < 0, -1.0, 1.0).to(cosa.dtype)
     cosa = cosa * sign

@@ -158,7 +158,10 @@ def propagate_plane(K: CameraIntrinsics, plane_i, S_ni, S_di, prev_mask,
     P = 1 (``plane_i (4,)``, ``S_ni (3, 3)``, scalar ``S_di``/``prev_count``,
     ``prev_mask (H, W)``); results without the plane axis."""
     def one(x):
-        return torch.as_tensor(x, device=depth.device).reshape(1)
+        if not isinstance(x, torch.Tensor):    # a number: float64 or int64
+            x = torch.as_tensor(x, dtype=torch.float64 if isinstance(
+                x, float) else torch.int64)
+        return x.to(depth.device).reshape(1)
 
     res = propagate_planes(
         K, plane_i[None], S_ni[None], one(S_di), prev_mask[None],

@@ -134,13 +134,59 @@ def test_se3_tangent_ops_match_jax(name):
     xi = _xis(7)[:9]    # the near-pi rows are outside Jr^-1's domain
     if name == "expmap":
         xi = _xis(7)
-    # Eager, not jitted: the reference's Q-matrix coefficients cancel
-    # catastrophically for 1e-6 < theta < 1e-3 (c3 reads 8470 instead of
-    # 1/120 at theta = 1e-5, an absolute error ~1e-11 in Jr^-1). Both
-    # packages evaluate the same operations eagerly and agree; XLA's fused
-    # jit evaluates them in another order.
+    else:
+        # the reference's Q-matrix coefficients cancel for 1e-6 < theta <
+        # ~1e-2 (its own fault); those rows are held to the series in
+        # test_q_left_coefficients_follow_their_series
+        theta = np.linalg.norm(xi[:, :3], axis=1)
+        xi = xi[(theta <= 1e-6) | (theta >= 1e-2)]
+    # Eager, not jitted: XLA's fused jit evaluates the reference's
+    # coefficients in another order.
     _close(*_both(getattr(jse3, name), getattr(se3, name), xi,
                   jit=name == "expmap"))
+
+
+def _q_series(theta):
+    """c1, c2, c3 of Q by 25 terms of their Taylor series, each
+    coefficient an exact fraction."""
+    from fractions import Fraction
+    from math import factorial
+
+    t2 = np.asarray(theta) ** 2
+    out = []
+    for c in (1, 2, 3):
+        coefs = [float(Fraction((-1) ** k * (k + 1 if c == 3 else 1),
+                                factorial(2 * k + 2 + c)))
+                 for k in range(25)]
+        out.append(sum(a * t2 ** k for k, a in enumerate(coefs)))
+    return out
+
+
+def test_q_left_coefficients_follow_their_series():
+    """The port evaluates Q's coefficients by their Taylor series up to
+    theta = 0.5 and the closed forms beyond.
+
+    The reference keeps the closed forms down to theta^2 = 1e-12, whose
+    numerators are differences of O(1) terms divided by theta^4 and
+    theta^5: c3 reads 8470 instead of 1/120 at theta = 1e-5, and its Jr^-1
+    is off by up to 8.4e-10 (theta = 1e-4, |v| ~ 1; measured). That is
+    the reference's own fault, so Jr^-1 is held to it at 1e-9 only, and
+    the coefficients to the series at 1e-12.
+    """
+    theta = np.concatenate([np.geomspace(1e-8, 1e-1, 29),
+                            [0.2, 0.499, 0.5, 0.501], np.linspace(0.6, 3.0, 9)])
+    got = se3._q_coeffs(torch.as_tensor(theta ** 2))
+    for c, ref in zip(got, _q_series(theta)):
+        np.testing.assert_allclose(c.numpy(), ref, rtol=1e-12, atol=0)
+    r = np.random.default_rng(12)
+    axes = r.normal(size=(29, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    xi = np.concatenate([axes * theta[:29, None], r.normal(size=(29, 3))],
+                        axis=1)
+    out_j, out_t = _both(jse3.right_jacobian_inverse,
+                         se3.right_jacobian_inverse, xi, jit=False)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=0,
+                               atol=1e-9)
 
 
 def _plane_xi():
@@ -199,3 +245,26 @@ def test_noise_models_match_jax(name):
         return
     _close(*_both(getattr(jnoise, name), getattr(noise, name),
                   *NOISE_CASES[name]()))
+
+
+@pytest.mark.parametrize("precision", [None, "high"])
+def test_import_changes_no_process_wide_setting(precision):
+    """Importing the port, in a fresh process, leaves torch's default dtype
+    float32 and its float32 matmul precision what the caller set (TF32
+    off, torch's default, when the caller set nothing)."""
+    import os
+    import subprocess
+    import sys
+
+    code = "import torch\n"
+    if precision:
+        code += f"torch.set_float32_matmul_precision({precision!r})\n"
+    code += ("import graph_slam_tpu_torch, graph_slam_tpu_torch.pipelines\n"
+             "print(torch.get_default_dtype(),"
+             " torch.get_float32_matmul_precision())\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout.split()
+    assert out == ["torch.float32", precision or "highest"]

@@ -22,7 +22,8 @@ from graph_slam_tpu_torch.graph import (GraphBuilder, factors, online,
                                         variables)
 from graph_slam_tpu_torch.io import VROLog
 from graph_slam_tpu_torch.noise import models as noise
-from graph_slam_tpu_torch.pipelines import (VioConfig, build_pose_graph,
+from graph_slam_tpu_torch.pipelines import (VioConfig, build_graph_from_g2o,
+                                            build_pose_graph, run_g2o_file,
                                             run_pose_graph, run_vio,
                                             vio_planes)
 
@@ -87,6 +88,29 @@ def _rescue_run(**kw):
                                  final_batch=False), **kw).values.plane
 
 
+def _g2o_graph():
+    """Three poses on a line and two edges, as ``io.read_g2o`` gives them."""
+    q = np.array([1.0, 0.0, 0.0, 0.0])
+    vertices = {k: (np.array([float(k), 0.0, 0.0]), q) for k in range(3)}
+    edges = [(k, k + 1, np.array([1.0, 0.0, 0.0]), q, np.eye(6) * 100.0)
+             for k in range(2)]
+    return vertices, edges
+
+
+def _g2o_file_run(**kw):
+    import os
+    import tempfile
+
+    from graph_slam_tpu_torch.io import write_g2o
+
+    vertices, edges = _g2o_graph()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "line.g2o")
+        write_g2o(path, np.stack([v[0] for v in vertices.values()]),
+                  np.stack([v[1] for v in vertices.values()]), edges)
+        return run_g2o_file(path, bucket=8, **kw).values.pose_t
+
+
 def _np_preint():
     st = imu.init_preint(np.zeros(6), imu.vn100_params(device="cpu"),
                          device="cpu")
@@ -106,6 +130,9 @@ ENTRY_POINTS = {
         _log(), bucket=8, **kw).values.pose_t,
     "build_pose_graph": lambda **kw: build_pose_graph(
         _log(), bucket=8, **kw)[1].pose_t,
+    "run_g2o_file": _g2o_file_run,
+    "build_graph_from_g2o": lambda **kw: build_graph_from_g2o(
+        *_g2o_graph(), bucket=8, **kw)[1].pose_t,
     "make_sphere_graph": lambda **kw: make_sphere_graph(
         20, bucket=8, **kw)[1].pose_t,
     "GraphBuilder.build": lambda **kw: _two_pose_graph().build(**kw)[1].pose_t,

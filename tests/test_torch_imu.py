@@ -339,7 +339,8 @@ def _random_imu_rows(F, seed, identity=False):
                     vec(3, 3, s=0.1), vec(3, 3, s=0.1), vec(3, 3, s=0.1),
                     vec(3, 3, s=0.1), vec(3, 3, s=0.1), vec(6, s=0.02),
                     torch.as_tensor(r.uniform(0.05, 0.2, size=F)),
-                    torch.tensor([0.0, 0.0, -9.81]).expand(F, 3))
+                    torch.tensor([0.0, 0.0, -9.81],
+                                 dtype=torch.float64).expand(F, 3))
     if identity:   # every rotation and bias at its identity / estimate
         eye = torch.eye(3, dtype=torch.float64).expand(F, 3, 3)
         rows = rows._replace(Ri=eye, Rj=eye, dR=eye, bi=rows.bias_hat)

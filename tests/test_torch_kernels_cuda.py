@@ -475,3 +475,137 @@ def test_plane_jacobian_on_the_card_matches_the_cpu():
         assert bool(torch.isfinite(out[1]).all())
         np.testing.assert_allclose(out[1].numpy(), out[0].numpy(), rtol=0,
                                    atol=tol)
+
+
+# -- the pose-graph backend on the card (no hand kernel: cuSOLVER, cuBLAS
+# and torch's scatter-adds), float64, card against CPU --------------------
+
+
+def _graph_to(x, device):
+    if isinstance(x, tuple):
+        return type(x)(*(_graph_to(f, device) for f in x))
+    return x.to(device)
+
+
+def _corrupted_sphere(n=120, n_bad=8, seed=7):
+    """A sphere with ``n_bad`` loop closures replaced by garbage (the
+    reference's ``tests/test_pcm.py`` scenario), on the CPU."""
+    from graph_slam_tpu_torch.datasets import make_sphere_graph
+    from graph_slam_tpu_torch.datasets.synthetic import _so3_exp
+
+    graph, values, _ = make_sphere_graph(n, 3.0, seed=0, bucket=64,
+                                         dtype=torch.float64, device="cpu")
+    bt = graph.between
+    act, i, j = bt.active.numpy(), bt.i.numpy(), bt.j.numpy()
+    idx = np.flatnonzero(act)
+    loops = idx[(j[idx] - i[idx]) > 1]
+    rng = np.random.default_rng(seed)
+    bad = rng.choice(loops, size=n_bad, replace=False)
+    R, t = bt.meas_R.clone(), bt.meas_t.clone()
+    for e in bad:
+        R[e] = torch.as_tensor(_so3_exp(rng.normal(size=3)))
+        t[e] = torch.as_tensor(rng.normal(size=3) * 3.0)
+    return graph._replace(between=bt._replace(meas_R=R, meas_t=t)), values, \
+        bad
+
+
+def test_pcm_on_the_card_matches_the_cpu():
+    from graph_slam_tpu_torch.graph import pcm_mask
+
+    dev = _cuda()
+    graph, values, bad = _corrupted_sphere()
+    cpu = pcm_mask(graph, values)
+    card = pcm_mask(_graph_to(graph, dev), _graph_to(values, dev))
+    np.testing.assert_array_equal(card.accepted, cpu.accepted)
+    np.testing.assert_array_equal(card.clique_rows, cpu.clique_rows)
+    np.testing.assert_allclose(card.m2, cpu.m2, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(card.m2_odo, cpu.m2_odo, rtol=1e-9)
+    assert not card.accepted[bad].any()
+
+
+def test_chordal_and_gnc_on_the_card_match_the_cpu():
+    from graph_slam_tpu_torch.graph import chordal_initialize, gnc_optimize
+
+    dev = _cuda()
+    graph, values, bad = _corrupted_sphere()
+    cand = (graph.between.j - graph.between.i) != 1
+    outs = []
+    for d in ("cpu", dev):
+        g, v = _graph_to(graph, d), _graph_to(values, d)
+        res = gnc_optimize(g, v, candidates=cand.to(d), kind="tls",
+                           solver="pcg", damping=1e-3)
+        outs.append((chordal_initialize(g, v), res))
+    (ch_cpu, g_cpu), (ch, g_card) = outs
+    for f in ("pose_R", "pose_t"):
+        np.testing.assert_allclose(getattr(ch, f).cpu().numpy(),
+                                   getattr(ch_cpu, f).numpy(), atol=1e-9)
+        np.testing.assert_allclose(getattr(g_card.values, f).cpu().numpy(),
+                                   getattr(g_cpu.values, f).numpy(),
+                                   atol=1e-9)
+    np.testing.assert_array_equal(g_card.inliers.cpu().numpy(),
+                                  g_cpu.inliers.numpy())
+    assert not g_card.inliers.cpu().numpy()[bad].any()
+
+
+def test_lm_optimize_g2o_and_marginalization_on_the_card_match_the_cpu():
+    from graph_slam_tpu_torch.datasets import make_sphere_graph
+    from graph_slam_tpu_torch.graph import (gn_optimize, lm_optimize_g2o,
+                                            marginalize_poses, total_error)
+
+    dev = _cuda()
+    graph, values, _ = make_sphere_graph(100, 4.0, seed=1, bucket=64,
+                                         dtype=torch.float64, device="cpu")
+    h_cpu = lm_optimize_g2o(graph, values).history.numpy()
+    h = lm_optimize_g2o(_graph_to(graph, dev), _graph_to(values, dev)) \
+        .history.cpu().numpy()
+    np.testing.assert_allclose(h, h_cpu, rtol=1e-9)
+    full = gn_optimize(graph, values, iterations=10, damping=1e-9).values
+    drop = np.arange(1, 99, 2)
+    m_cpu = marginalize_poses(graph, full, drop)
+    m = marginalize_poses(_graph_to(graph, dev), _graph_to(full, dev), drop)
+    assert m[2] == m_cpu[2]
+    for name in ("prior_pose", "between"):
+        for a, c in zip(getattr(m[0], name), getattr(m_cpu[0], name)):
+            np.testing.assert_allclose(a.cpu().numpy(), c.numpy(),
+                                       rtol=1e-9, atol=1e-9)
+    e, e_cpu = float(total_error(*m[:2])), float(total_error(*m_cpu[:2]))
+    assert abs(e - e_cpu) <= 1e-9 * e_cpu
+
+
+def test_solvers_on_the_card_match_the_cpu():
+    """The gather path, both banded solvers and the fleet's per-graph CG."""
+    from graph_slam_tpu_torch.datasets import make_sphere_graph
+    from graph_slam_tpu_torch.graph import (band_halfwidth,
+                                            banded_direct_gn_optimize,
+                                            banded_gn_optimize,
+                                            build_incidence, gn_optimize,
+                                            gn_optimize_many, stack_pytrees)
+
+    dev = _cuda()
+    pairs = [make_sphere_graph(60, 3.0, seed=s, bucket=4,
+                               dtype=torch.float64, device="cpu")[:2]
+             for s in range(3)]
+    g, v = pairs[0]
+    W = band_halfwidth(g)
+    runs = {
+        "gather": lambda g, v: gn_optimize(
+            g, v, iterations=4, solver="pcg", pcg_iters=100, damping=1e-6,
+            inc=build_incidence(g, v)).values,
+        "banded": lambda g, v: banded_gn_optimize(
+            g, v, iterations=4, band_w=W, damping=1e-6, pcg_iters=100)[0],
+        "banded_direct": lambda g, v: banded_direct_gn_optimize(
+            g, v, iterations=4, band_w=W, damping=1e-6)[0],
+    }
+    for name, run in runs.items():
+        cpu = run(g, v).pose_t.numpy()
+        card = run(_graph_to(g, dev), _graph_to(v, dev)).pose_t.cpu().numpy()
+        np.testing.assert_allclose(card, cpu, atol=1e-9, err_msg=name)
+    graphs = stack_pytrees([_graph_to(x, dev) for x, _ in pairs])
+    arenas = stack_pytrees([_graph_to(y, dev) for _, y in pairs])
+    fleet = gn_optimize_many(graphs, arenas, iterations=5, solver="pcg",
+                             damping=1e-3, pcg_iters=30)
+    for k, (gk, vk) in enumerate(pairs):
+        single = gn_optimize(gk, vk, iterations=5, solver="pcg",
+                             damping=1e-3, pcg_iters=30)
+        np.testing.assert_allclose(fleet.values.pose_t[k].cpu().numpy(),
+                                   single.values.pose_t.numpy(), atol=1e-9)

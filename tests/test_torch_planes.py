@@ -253,7 +253,7 @@ def test_draw_is_keyed_and_maps_to_remaining_points():
     assert not torch.equal(u, extraction.hypothesis_uniforms((0, 0, 8), 4,
                                                              512))
     remaining = torch.tensor([[False, True, False, True, True, False]])
-    k = torch.tensor([[0.0, 0.34, 0.67, 0.999]])
+    k = torch.tensor([[0.0, 0.34, 0.67, 0.999]], dtype=torch.float64)
     assert extraction._sample(k, remaining).tolist() == [[1, 3, 4, 4]]
     none = torch.zeros_like(remaining)
     assert extraction._sample(k, none).max() < 6

@@ -238,7 +238,8 @@ def test_row_writers_match_reference(ref_state):
     imu = gt.imu._replace(**{f: x.clone() for f, x in gt.imu._asdict()
                              .items()})
     port = online.imu_row(imu, 3, 1, 2, *map(torch.as_tensor, args),
-                          torch.tensor(0.1), torch.tensor([0.0, 0.0, -9.81]),
+                          torch.tensor(0.1, dtype=torch.float64),
+                          torch.tensor([0.0, 0.0, -9.81], dtype=torch.float64),
                           torch.as_tensor(cov), active=False)
     for a, b in zip(port, ref):
         np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-12,
@@ -248,7 +249,8 @@ def test_row_writers_match_reference(ref_state):
     S = np.triu(r.normal(size=(6, 6)))
     ref = jonline.between_row(gj.between, 5, 2, 7, jnp.eye(3),
                               jnp.ones(3), jnp.asarray(S), 1, 0.5)
-    port = online.between_row(bt, 5, 2, 7, torch.eye(3), torch.ones(3),
+    port = online.between_row(bt, 5, 2, 7, torch.eye(3, dtype=torch.float64),
+                              torch.ones(3, dtype=torch.float64),
                               torch.as_tensor(S), 1, 0.5)
     for a, b in zip(port, ref):
         np.testing.assert_array_equal(_np(a), np.asarray(b))
@@ -260,7 +262,8 @@ def test_online_graph_writes_in_place():
     og = online.OnlineGraph(empty_graph(1, 2, 1, 1, imu_cap=1, device="cpu"),
                             empty_arena(4, 4, 4, device="cpu"))
     pose_t = og.values.pose_t
-    og.set_pose(1, se3.Pose(torch.eye(3), torch.ones(3)))
+    og.set_pose(1, se3.Pose(torch.eye(3, dtype=torch.float64),
+                            torch.ones(3, dtype=torch.float64)))
     og.set_vel(1, np.ones(3))
     og.set_bias(2, np.ones(6), new=False)
     og.add_between(0, 1, og.pose(1), np.eye(6), robust=1.5)
