@@ -43,12 +43,27 @@ Phases, one JSON line each:
              PCM's decisions, chordal poses, ``lm_optimize_g2o``'s history
              and ``marginalize_poses`` on a 500-pose sphere. It launches no
              hand-written kernel.
-7. planes  — the plane-rescue propagation over rendered frames of the
+7. ba      — bundle adjustment: (a) ``tests/goldens/ba_fixture.json`` in
+             float64, e0 and the optimum of LM, the square-root and the
+             normal-equations Schur within 1e-6 of their pins; (b) the JAX
+             bench's ``ba_schur`` (100 poses x 10,000 landmarks, float32):
+             20 GN iterations of PCG-25 to chi2 < 0.1 e0, and a float64
+             copy through the normal-equations Schur; (c) its ``ba_sqrt``
+             (the same graph at bucket 64, 8 square-root steps); (d) its
+             ``ba_sqrt_100k``, the slice at full width: 320 poses x 100,000
+             landmarks, float32, 4 square-root steps with ``step_clip=1``,
+             exact and bf16x3 assembly, each to a finite chi2 < 0.1 e0,
+             with build, table, cold and warm step times and peak memory;
+             (e) card against CPU in float64 on a 12-pose, 400-landmark
+             graph: both Schur forms, LM and the pose marginals within
+             1e-9; (f) ``two_frame_ba`` and ``run_ba_imu`` (float64 and
+             float32) on the card. It launches no hand-written kernel.
+8. planes  — the plane-rescue propagation over rendered frames of the
              two-plane room: 50 SR4000 frames through ``propagate_planes``
              and 10 RealSense frames through ``propagate_plane``, every call
              launching the region-grow kernel.
 
-8. vio    — the VIO scan replay, ``run_vio(engine="scan",
+9. vio    — the VIO scan replay, ``run_vio(engine="scan",
              plane_mode="off")``, on the plane-aided VIO scenario of 2,000
              frames (``--vio-frames``): 200 Hz VN100 IMU, 20 samples a
              frame, every 20th VO edge failed and carried by the IMU; a
@@ -59,7 +74,7 @@ Phases, one JSON line each:
              the replay's arena, a 200-frame replay and its LM from
              perturbed values, each on the card against the CPU; host
              syncs per record.
-9. rescue — the flagship, ``run_vio(engine="scan", plane_mode="rescue")``
+10. rescue — the flagship, ``run_vio(engine="scan", plane_mode="rescue")``
              with SR4000 frames of the two-plane room rendered on demand,
              on the same scenario at 2,000 frames (``--rescue-frames``)
              with every 100th VO edge failed and rescued by planes, the JAX
@@ -71,7 +86,7 @@ Phases, one JSON line each:
              replay on the card against the CPU, host syncs per rescue,
              the rescue's sub-phase times, how many predictions ran the
              fresh extraction, and a plane-free replay of the same log.
-10. online — the online engine, ``run_vio(engine="online")`` (the default
+11. online — the online engine, ``run_vio(engine="online")`` (the default
              of ``run_vio``), on the ``rescue`` phase's scenario at 2,000
              frames (``--online-frames``): (a) the flagship rescue at the
              JAX bench's ``compare_online`` configuration, cold and warm
@@ -86,19 +101,21 @@ Phases, one JSON line each:
              corridor, with flat per-update time; (f) a checkpoint of
              (a)'s graph saved and loaded bit-equal; host syncs per frame
              and per rescue.
-11. profile — the replays of phases 8, 9 and 10 on their scenarios'
-             first 300 frames (timed in those phases) again under
-             ``torch.profiler``: launches per record, device busy share,
-             top device ops. It runs after every timed replay, as a
-             profiler session slows the process's later launches.
+12. profile — the replays of phases 9, 10 and 11 on their scenarios'
+             first 300 frames (timed in those phases) and one GN iteration
+             of (7d) again under ``torch.profiler``: launches per record
+             (per iteration), device busy share, top device ops. It runs
+             after every timed run, as a profiler session slows the
+             process's later launches.
 
-Phases 3-11 are the main path, driven on the port's default device (the
-card): the kernel's launch counter is set to 0 just before phases 3-7 and
-read just after (phase 6 on its own is held to 0 launches), again around
-phase 8, which launches no hand-written kernel, around phase 9 and around
-phase 10, where each rescue whose previous frame had planes launches it
-once, and around each replay that phase 11 profiles. The region-grow kernel is timed on the fill
-inputs of real frames (phase ``frames``) and of a rescue, and the script
+Phases 3-12 are the main path, driven on the port's default device (the
+card): the kernel's launch counter is set to 0 just before phases 3-8 and
+read just after (phases 6 and 7 on their own are held to 0 launches),
+again around phase 9, which launches no hand-written kernel, around phase
+10 and around phase 11, where each rescue whose previous frame had planes
+launches it once, and around each replay that phase 12 profiles. The
+region-grow kernel is timed on the fill inputs of real frames (phase
+``frames``) and of a rescue, and the script
 prints the kernel summary line and, last, ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the
 exit code is non-zero and no result line is printed. It needs one CUDA card
@@ -1011,6 +1028,336 @@ def phase_posegraph(pcg):
              "the pose-graph phase launched region_grow")
 
 
+# -- bundle adjustment: goldens, the bench's BA configurations, card vs CPU --
+
+BA_100K = (320, 100_000)   # bench.py's ba_sqrt_100k: poses, landmarks
+BA_HELD = 1e-9             # card vs CPU, float64, relative
+BA_JAX_100K_CHI2 = 145748.234375   # BENCH_r05.json, the bf16x3 run (accuracy)
+
+
+def _ba_fixture(dtype):
+    """``tests/goldens/ba_fixture.json`` built as ``tests/test_goldens.py``
+    builds it: Cal3DS2 projections through a mounted camera, point priors,
+    a pose prior."""
+    import numpy as np
+
+    from graph_slam_tpu_torch.graph import GraphBuilder
+
+    fx = json.load(open(os.path.join(GOLDEN, "ba_fixture.json")))
+    b = GraphBuilder()
+    for R, t in fx["init_poses"]:
+        b.add_pose((np.asarray(R), np.asarray(t)))
+    pR, pt = fx["prior_pose"]
+    b.add_prior_pose(0, (np.asarray(pR), np.asarray(pt)),
+                     sigmas=np.full(6, 1e-6))
+    for q, p in enumerate(fx["init_points"]):
+        b.add_point(np.asarray(p))
+        b.add_prior_point(q, np.asarray(p), sigma=fx["point_prior_sigma"])
+    body = (np.asarray(fx["body_R"]), np.asarray(fx["body_t"]))
+    for k, q, uv in fx["obs"]:
+        b.add_projection_factor(k, q, np.asarray(uv), fx["cal"],
+                                body_pose=body, sigma=1.0)
+    return b.build(bucket=8, dtype=dtype)
+
+
+def _ba_golden(out):
+    """(a) the golden BA fixture in float64: e0 and the optimum of LM, the
+    square-root and the normal-equations Schur against the pins."""
+    import torch
+
+    from graph_slam_tpu_torch.graph import (LMParams, ba_gn_optimize,
+                                            ba_gn_optimize_sqrt, lm_optimize,
+                                            total_error)
+
+    pins = json.load(open(os.path.join(GOLDEN, "chi2.json")))
+    graph, values = _ba_fixture(torch.float64)
+    e0 = float(total_error(graph, values))
+    lm = lm_optimize(graph, values, LMParams(relative_error_tol=1e-14,
+                                             absolute_error_tol=1e-14))
+    sq = ba_gn_optimize_sqrt(graph, values, iterations=25, damping=1e-6)[1]
+    ne = ba_gn_optimize(graph, values, iterations=25, damping=1e-6)[1]
+    out.update({"error0": e0, "error_lm": float(lm.error),
+                "error_sqrt": float(sq), "error_schur": float(ne),
+                "lm_iterations": lm.iterations})
+    rels = {"rel_err0": abs(e0 - pins["ba_error0"]) / pins["ba_error0"]}
+    for k in ("lm", "sqrt", "schur"):
+        rels[f"rel_err_{k}"] = abs(out[f"error_{k}"] - pins["ba_error"]) \
+            / pins["ba_error"]
+    out.update(rels)
+    _require(max(rels.values()) <= 1e-6,
+             f"BA golden outside 1e-6 of its pins: {rels}")
+
+
+def _timed_s(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _ba_schur(out):
+    """(b) the bench's ``ba_schur``: 100 poses x 10,000 landmarks, float32,
+    bucket 256, 20 GN iterations of PCG-25 to chi2 < 0.1 e0; and a float64
+    copy through the normal-equations Schur (the bench's x64 variant)."""
+    import torch
+
+    from graph_slam_tpu_torch.datasets import make_ba_graph
+    from graph_slam_tpu_torch.graph import (ba_gn_optimize, gn_optimize,
+                                            total_error)
+
+    graph, values, _ = make_ba_graph(100, 10000, obs_per_point=4, seed=0,
+                                     dtype=torch.float32, bucket=256)
+    e0 = float(total_error(graph, values))
+    gn_optimize(graph, values, iterations=1, solver="pcg", damping=1e-2,
+                pcg_iters=25)                               # warm-up
+    res, wall = _timed_s(lambda: gn_optimize(
+        graph, values, iterations=20, solver="pcg", damping=1e-2,
+        pcg_iters=25))
+    out["pcg"] = {"error0": e0, "error": float(res.error),
+                  "ms_per_iter": wall / 20 * 1e3,
+                  "projections": int(graph.projection.active.sum())}
+    _require(float(res.error) < 0.1 * e0,
+             f"ba_schur PCG: chi2 {float(res.error):.4g} not below 0.1 e0")
+
+    g64, v64 = _cast(graph, torch.float64), _cast(values, torch.float64)
+    torch.cuda.reset_peak_memory_stats()
+    (_, err), wall = _timed_s(lambda: ba_gn_optimize(
+        g64, v64, iterations=20, damping=1e-3))
+    out["schur_f64"] = {"error": float(err), "ms_per_iter": wall / 20 * 1e3,
+                        "U_bytes": 6 * 256 * 3 * v64.point.shape[0] * 8,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    _require(float(err) < 0.1 * e0,
+             f"ba_schur f64 Schur: chi2 {float(err):.4g} not below 0.1 e0")
+
+
+def _cast(x, dtype):
+    """A factor graph or arena with its floating tensors cast to ``dtype``."""
+    if isinstance(x, tuple):
+        return type(x)(*(_cast(f, dtype) for f in x))
+    return x.to(dtype) if x.is_floating_point() else x
+
+
+def _ba_sqrt_run(n_poses, n_points, bucket, iters, chunk, damping,
+                 step_clip=None, precision=None):
+    """The bench's ``bench_ba_sqrt`` on the port: build, tables, a cold and
+    a warm call of ``iters`` square-root steps (the card synchronised
+    around each), chi2 and peak memory. Returns (the numbers, the job that
+    the profile phase replays)."""
+    import torch
+
+    from graph_slam_tpu_torch.datasets import make_ba_graph
+    from graph_slam_tpu_torch.graph import (build_point_obs, layout_of,
+                                            sqrt_schur_gn_step, total_error)
+
+    torch.cuda.reset_peak_memory_stats()
+    (graph, values, _), build_s = _timed_s(lambda: make_ba_graph(
+        n_poses, n_points, obs_per_point=4, seed=0, dtype=torch.float32,
+        bucket=bucket))
+    lay = layout_of(values)
+    tabs, obs_s = _timed_s(lambda: [
+        torch.as_tensor(t, device=values.pose_t.device)
+        for t in build_point_obs(graph, lay.point_cap)])
+    e0 = float(total_error(graph, values))
+
+    step = dict(damping=damping, chunk=chunk, step_clip=step_clip,
+                assembly_precision=precision)
+
+    def solve():
+        v = values
+        for _ in range(iters):
+            v = sqrt_schur_gn_step(graph, v, *tabs, **step)
+        return v
+
+    _, cold = _timed_s(solve)
+    v, warm = _timed_s(solve)
+    err = float(total_error(graph, v))
+    out = {"poses": int(values.num_poses),
+           "landmarks": int(values.num_points), "Dp": lay.point_off,
+           "point_cap": lay.point_cap, "K": int(tabs[0].shape[1]),
+           "projections": int(graph.projection.active.sum()),
+           "iterations": iters, "chunk": chunk, "damping": damping,
+           "step_clip": step_clip, "assembly_precision": precision,
+           "build_s": build_s, "build_point_obs_s": obs_s,
+           "ms_per_iter_cold": cold / iters * 1e3,
+           "ms_per_iter_warm": warm / iters * 1e3,
+           "error0": e0, "error": err,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    _require(err == err and err < 0.1 * e0,
+             f"sqrt-Schur {n_poses}x{n_points}: chi2 {err:.4g} not finite "
+             f"and below 0.1 e0 = {0.1 * e0:.4g}")
+    return out, (graph, values, tabs, step, warm / iters)
+
+
+def _rel_max(a, b):
+    a, b = a.cpu().double(), b.cpu().double()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+
+
+def _ba_card_vs_cpu(out):
+    """(e) float64 card against CPU on ``make_ba_graph(12, 400, seed 3)``:
+    the square-root and normal-equations Schur, LM and the pose
+    marginals."""
+    import torch
+
+    from graph_slam_tpu_torch.datasets import make_ba_graph
+    from graph_slam_tpu_torch.graph import (ba_gn_optimize,
+                                            ba_gn_optimize_sqrt, lm_optimize,
+                                            pose_marginals_all)
+
+    g, v, _ = make_ba_graph(12, 400, obs_per_point=4, seed=3,
+                            dtype=torch.float64, bucket=64)
+    gc, vc = _to(g, "cpu"), _to(v, "cpu")
+    runs = {
+        "sqrt": lambda g, v: ba_gn_optimize_sqrt(g, v, iterations=8,
+                                                 damping=1e-4, chunk=128),
+        "schur": lambda g, v: ba_gn_optimize(g, v, iterations=8,
+                                             damping=1e-4),
+        "lm": lambda g, v: (lambda r: (r.values, r.error))(
+            lm_optimize(g, v)),
+    }
+    worst = 0.0
+    for name, fn in runs.items():
+        (va, ea), (vb, eb) = fn(g, v), fn(gc, vc)
+        d = {"chi2": abs(float(ea) - float(eb)) / float(eb),
+             "pose_t": _rel_max(va.pose_t, vb.pose_t),
+             "pose_R": _rel_max(va.pose_R, vb.pose_R),
+             "point": _rel_max(va.point, vb.point)}
+        out[name] = dict(d, error=float(ea))
+        worst = max(worst, *d.values())
+    opt = runs["lm"](gc, vc)[0]
+    m = _rel_max(pose_marginals_all(g, _to(opt, v.pose_t.device), 12),
+                 pose_marginals_all(gc, opt, 12))
+    out["pose_marginals_all"] = m
+    out["max_rel_err"] = max(worst, m)
+    _require(out["max_rel_err"] <= BA_HELD,
+             f"BA card vs CPU: {out['max_rel_err']:.3g} above {BA_HELD}")
+
+
+def _ba_pipelines(out):
+    """(f) ``two_frame_ba`` on ``tests/test_ba.py``'s scene and
+    ``run_ba_imu`` on six frames of the VIO scenario with 25 landmarks,
+    float64 (normal-equations Schur) and float32 (square-root Schur)."""
+    import numpy as np
+    import torch
+
+    from graph_slam_tpu_torch.config import SR4000
+    from graph_slam_tpu_torch.core import se3
+    from graph_slam_tpu_torch.datasets import make_vio_plane_scenario
+    from graph_slam_tpu_torch.pipelines import BaImuConfig, run_ba_imu
+    from graph_slam_tpu_torch.vision import (Cal3DS2, project_point,
+                                             two_frame_ba)
+
+    K = Cal3DS2.make(SR4000.fx, SR4000.fy, SR4000.cx, SR4000.cy, SR4000.k1,
+                     SR4000.k2)
+
+    def project(local):
+        return project_point(K, torch.as_tensor(local, device=K.fx.device)
+                             ).cpu().numpy()
+
+    r = np.random.default_rng(0)
+    pts = np.stack([r.uniform(-1, 1, 40), r.uniform(-0.8, 0.8, 40),
+                    r.uniform(1.5, 3.5, 40)], axis=1)
+    xi = torch.tensor([0.03, -0.05, 0.04, 0.12, -0.06, 0.08],
+                      dtype=torch.float64)
+    T = se3.expmap(xi)
+    Rg, tg = T.R.numpy(), T.t.numpy()
+    pts_j = (pts - tg) @ Rg
+    T0 = se3.retract(T, torch.full((6,), 0.02, dtype=torch.float64))
+    (R, t), info, err = two_frame_ba(pts, project(pts), project(pts_j),
+                                     SR4000, (T0.R.numpy(), T0.t.numpy()))
+    out["two_frame"] = {"R_err": float(np.abs(R - Rg).max()),
+                        "t_err": float(np.abs(t - tg).max()),
+                        "info_min_eig": float(np.linalg.eigvalsh(info).min()),
+                        "error": err}
+    _require(out["two_frame"]["R_err"] <= 1e-5
+             and out["two_frame"]["t_err"] <= 1e-4
+             and out["two_frame"]["info_min_eig"] > 0,
+             f"two_frame_ba: {out['two_frame']}")
+
+    _, times, stream, params, _, _, (Rs, ts) = make_vio_plane_scenario(
+        n_frames=6, render=False, return_gt=True)
+    W = np.stack([r.uniform(-2, 2, 25), r.uniform(-2, 2, 25),
+                  r.uniform(2.5, 5, 25)], axis=1)
+    frames = []
+    for f in range(6):
+        local = (W - ts[f]) @ Rs[f]
+        frames.append({"uv": project(local), "pts3": local})
+    cfg = BaImuConfig(use_imu=True, solver="schur", schur_iters=8, bucket=16)
+    for name, dt in (("ba_imu_f64", torch.float64),
+                     ("ba_imu_f32", torch.float32)):
+        res, wall = _timed_s(lambda: run_ba_imu(
+            frames, lambda i, j: [(k, k) for k in range(25)], times, stream,
+            params, SR4000, cfg=cfg, dtype=dt))
+        pos = float(np.abs(res.values.pose_t[:6].cpu().double().numpy()
+                           - ts).max())
+        out[name] = {"error0": res.error0, "error": res.error,
+                     "max_position_err_m": pos, "wall_s": wall,
+                     "landmarks": res.n_landmarks,
+                     "imu_factors": res.n_imu_factors}
+        _require(res.error < 1e-3 and pos <= 2e-2
+                 and res.n_landmarks == 25 and res.n_imu_factors == 5,
+                 f"run_ba_imu {name}: {out[name]}")
+
+
+def phase_ba():
+    """Bundle adjustment on the card: (a) the golden fixture, (b) the
+    bench's ``ba_schur``, (c) its ``ba_sqrt``, (d) ``ba_sqrt_100k`` and its
+    bf16x3 variant, (e) card against CPU, (f) two-frame BA and BA+IMU.
+    Returns the job the profile phase replays ((d)'s graph). The phase's
+    line is printed whether or not a check fails, with what was
+    measured."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"phase": "ba"}
+    job = None
+    try:
+        _ba_golden(out.setdefault("a_golden", {}))
+        _ba_schur(out.setdefault("b_ba_schur", {}))
+        out["c_ba_sqrt"], _ = _ba_sqrt_run(100, 10000, 64, 8, 2048, 1e-4)
+        d = out.setdefault("d_ba_sqrt_100k", {})
+        d["exact"], job = _ba_sqrt_run(*BA_100K, 64, 4, 4096, 1e-3,
+                                       step_clip=1.0)
+        d["bf16x3"], _ = _ba_sqrt_run(*BA_100K, 64, 4, 4096, 1e-3,
+                                      step_clip=1.0, precision="high")
+        d["jax_bf16x3_chi2_BENCH_r05"] = BA_JAX_100K_CHI2
+        d["exact_chi2_over_jax"] = d["exact"]["error"] / BA_JAX_100K_CHI2
+        d["bf16x3_chi2_over_exact"] = d["bf16x3"]["error"] \
+            / d["exact"]["error"]
+        torch.cuda.empty_cache()
+        _ba_card_vs_cpu(out.setdefault("e_card_vs_cpu", {}))
+        _ba_pipelines(out.setdefault("f_pipelines", {}))
+    finally:
+        out["seconds"] = time.perf_counter() - t_phase
+        _emit(out)
+    return job
+
+
+def _profile_ba(job):
+    """(g) one GN iteration of (d) under ``torch.profiler``: its launches,
+    the device busy share against the warm iteration's wall (timed in
+    (d), without the profiler), top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from graph_slam_tpu_torch.graph import sqrt_schur_gn_step
+
+    graph, values, tabs, step, wall_s = job
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sqrt_schur_gn_step(graph, values, *tabs, **step)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    return {"wall_s_per_iter": wall_s, "device_busy_s_per_iter": busy_s,
+            "device_busy_share": busy_s / wall_s,
+            "launches_per_iter": sum(r[1] for r in rows),
+            "top_device_ops": [{"name": k[:90], "count": c, "ms": us / 1e3}
+                               for us, c, k in rows[:12]]}
+
+
 def _camera_path(n):
     """World-from-camera poses: a few cm and up to ~2 degrees per frame,
     pitched ~8 degrees down so the floor stays in view."""
@@ -1273,6 +1620,21 @@ def _count_syncs(scenario, replay=None):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def _device_rows(prof):
+    """(device µs, launches, name) of every device op a profiler session
+    saw, the largest first."""
+    import torch
+
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    return sorted(rows, reverse=True)
+
+
 def _profile_replay(scenario, wall_s, replay=None):
     """One more replay of ``scenario`` (``replay``, default
     ``_vio_replay``) under ``torch.profiler`` (device activity only): its
@@ -1285,14 +1647,7 @@ def _profile_replay(scenario, wall_s, replay=None):
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         res, prof_wall = (replay or _vio_replay)(scenario, torch.float64)
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     return {"records": len(scenario[0]), "wall_s": wall_s,
             "profiled_wall_s": prof_wall, "device_busy_s": busy_s,
@@ -2209,17 +2564,20 @@ def phase_online(n_frames, scan_counts):
     return out, predictions, (sc, wall)
 
 
-def phase_profiles(vio_job, rescue_job, online_job):
-    """The VIO, rescue and online prefix replays again under the profiler,
-    after every timed replay of the script: a profiler session leaves the
-    process slower to launch kernels, so nothing is timed after one.
-    Returns the region-grow launches of the rescue's and the online
-    engine's profiled replays, each held to its predictions."""
+def phase_profiles(vio_job, rescue_job, online_job, ba_job):
+    """The VIO, rescue and online prefix replays and one GN iteration of
+    ``ba_sqrt_100k`` again under the profiler, after every timed run of
+    the script: a profiler session leaves the process slower to launch
+    kernels, so nothing is timed after one. Returns the region-grow
+    launches of the rescue's and the online engine's profiled replays,
+    each held to its predictions."""
     from graph_slam_tpu_torch.planes.region_grow import region_grow
 
     region_grow.launches = 0
     out = {"phase": "profile", "vio": _profile_replay(*vio_job)}
     _require(region_grow.launches == 0, "the VIO path launched region_grow")
+    out["ba"] = _profile_ba(ba_job)
+    _require(region_grow.launches == 0, "the BA path launched region_grow")
     launches = {}
     for name, job, replay in (("rescue", rescue_job, _rescue_replay),
                               ("online", online_job, _online_flagship)):
@@ -2278,6 +2636,9 @@ def main(argv=None):
     launches = region_grow.launches
     region_grow.launches = 0
     phase_posegraph(pcg)
+    ba_job = phase_ba()
+    ba_launches = region_grow.launches
+    _require(ba_launches == 0, "the ba phase launched region_grow")
     region_grow.launches = launches
     phase_planes()
     launches = region_grow.launches
@@ -2302,7 +2663,7 @@ def main(argv=None):
     _require(online_launches > 0 and online_launches == predictions,
              f"the online engine launched region_grow {online_launches} "
              f"times for {predictions} predictions on the card")
-    profiled = phase_profiles(vio_job, rescue_job, online_job)
+    profiled = phase_profiles(vio_job, rescue_job, online_job, ba_job)
     rescue_launches += profiled["rescue"]
     online_launches += profiled["online"]
     phase_frames()
@@ -2313,7 +2674,8 @@ def main(argv=None):
         "source": "graph_slam_tpu_torch/csrc/region_grow.cu",
         "replaces": "graph_slam_tpu/planes/pallas_grow.py:78",
         "launches": launches + rescue_launches + online_launches,
-        "launches_by_path": {"planes": launches, "rescue": rescue_launches,
+        "launches_by_path": {"posegraph": 0, "ba": ba_launches,
+                             "planes": launches, "rescue": rescue_launches,
                              "online": online_launches},
         "max_abs_err": max(timing["mismatches"],
                            rescue_timing["mismatches"]),

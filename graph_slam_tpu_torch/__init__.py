@@ -21,7 +21,16 @@ Ported so far:
   (``graph.online``);
 - the plane stack (``planes``): extraction, association, plane nodes and
   the plane rescue, whose region grow is a hand-written CUDA kernel
-  (``csrc/region_grow.cu``, built by ``kernels.build``).
+  (``csrc/region_grow.cu``, built by ``kernels.build``);
+- bundle adjustment: the Cal3DS2 projection and point-prior tables
+  (``graph.factors``), the normal-equations and square-root Schur
+  eliminations (``graph.ba_solve``), marginal covariances
+  (``graph.marginals``), ``vision`` (Cal3DS2, depth backprojection,
+  two-frame BA, ``TrackBook``), ``datasets.make_ba_graph`` and
+  ``pipelines.run_ba_imu``.
+
+Not ported yet: the feature frontend, online SLAM, mapping, serving and
+the CLI (ROADMAP item F), and multi-device sharding (item G).
 
 Importing the package changes no process-wide torch setting: tensors
 default to whatever dtype the caller has set (entry points take

@@ -3,9 +3,9 @@
 The JAX package's pytrees go in as any object with the same field names
 whose leaves are array-likes (``jax.tree.map(np.asarray, graph)`` for
 example), so this module needs no jax. ``graph_from_numpy`` carries every
-table (the IMU, velocity- and bias-prior tables included) and
-``arena_from_numpy`` a VIO arena with its velocities, biases and plane
-landmarks (the plane factor table rides ``graph_from_numpy``);
+table (the IMU, plane, projection and point-prior tables included) and
+``arena_from_numpy`` an arena with its velocities, biases, plane and point
+landmarks; ``cal3ds2_from_numpy`` a camera's Cal3DS2 intrinsics;
 ``imu_params_from_numpy`` and ``preint_from_numpy`` carry the IMU noise
 model and a preintegration state, ``plane_node_from_numpy`` a frame's
 plane set (``PlaneNodeDetection``, numpy on both sides). Integer fields become int64 (torch's
@@ -27,8 +27,10 @@ from .graph.factors import TABLE_TYPES, FactorGraph
 from .graph.variables import VariableArena
 from .imu import ImuParams, PreintState
 from .planes.plane_node import PlaneNodeDetection
+from .vision.cal3ds2 import Cal3DS2
 
 __all__ = ["tensor", "graph_from_numpy", "arena_from_numpy",
+           "cal3ds2_from_numpy",
            "imu_params_from_numpy", "preint_from_numpy",
            "plane_node_from_numpy",
            "PropagationInputs", "propagation_inputs", "to_numpy"]
@@ -67,6 +69,12 @@ def arena_from_numpy(values, *, device=None,
     """A JAX ``VariableArena`` (numpy leaves) -> the port's arena."""
     device = resolve(device)
     return _convert(VariableArena, values, device, dtype)
+
+
+def cal3ds2_from_numpy(cal, *, device=None,
+                       dtype=torch.float64) -> Cal3DS2:
+    """A JAX ``Cal3DS2`` (numpy leaves) -> the port's ``Cal3DS2``."""
+    return _convert(Cal3DS2, cal, resolve(device), dtype)
 
 
 def imu_params_from_numpy(params, *, device=None,

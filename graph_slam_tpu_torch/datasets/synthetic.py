@@ -1,10 +1,15 @@
-"""Synthetic generators (port of ``datasets/synthetic.py:22-96,174-357``).
+"""Synthetic generators (port of ``datasets/synthetic.py``).
 
 ``make_sphere_graph`` builds the sphere2500-class pose graph: a spiral over
 a sphere with odometry edges and short-range loop closures, ~4 edges per
 pose like the classic g2o sphere2500 (2500 poses / 9799 edges). It draws
 the same numpy random numbers in the same order as the reference, so the
 two packages build the same graph from the same seed.
+
+``make_ba_graph`` is the bundle-adjustment stress problem (cameras on an
+arc, Cal3DS2 projections of a point cloud): the reference's draws in the
+reference's order, with the rows added in blocks, so its tables equal the
+reference's and a 100,000-landmark graph builds in seconds.
 
 ``_render_plane_frame`` ray-casts depth and intensity of world planes
 (the plane-rescue scenario's renderer), a numpy copy.
@@ -24,7 +29,7 @@ import torch
 from ..device import resolve
 from ..graph import GraphBuilder
 
-__all__ = ["make_sphere_graph", "sphere_ground_truth",
+__all__ = ["make_sphere_graph", "sphere_ground_truth", "make_ba_graph",
            "make_vio_plane_scenario"]
 
 
@@ -103,6 +108,84 @@ def make_sphere_graph(n_poses: int = 2500, edges_per_pose: float = 4.0,
 
     graph, values = b.build(bucket=bucket, device=device, dtype=dtype)
     return graph, values, (Rs, ts)
+
+
+def make_ba_graph(n_poses: int = 100, n_points: int = 10000,
+                  obs_per_point: int = 4, pixel_noise: float = 0.5,
+                  init_noise: float = 0.05, seed: int = 0, *,
+                  dtype=torch.float32, device=None, bucket: int = 256,
+                  cal=None):
+    """Bundle-adjustment stress problem: cameras on an arc looking at a point
+    cloud, each landmark observed from ``obs_per_point`` nearby cameras
+    through a Cal3DS2 projection (``cal``, default the SR4000), a pose prior
+    on camera 0 and a point prior on every landmark. On the CUDA card unless
+    ``device`` names another. Returns (graph, values, (gt (Rs, ts),
+    gt_points)).
+
+    Draws as the reference does: one (3,) normal per landmark in landmark
+    order equals one (n_points, 3) draw, so the landmarks' noise is drawn
+    at once.
+    """
+    from ..config import SR4000
+
+    device = resolve(device)
+    cal = cal or SR4000
+    r = np.random.default_rng(seed)
+
+    def project_np(local):
+        z = np.maximum(local[:, 2], 1e-6)
+        x = local[:, 0] / z
+        y = local[:, 1] / z
+        r2 = x * x + y * y
+        g = 1.0 + cal.k1 * r2 + cal.k2 * r2 * r2
+        dx = 2 * cal.p1 * x * y + cal.p2 * (r2 + 2 * x * x)
+        dy = 2 * cal.p2 * x * y + cal.p1 * (r2 + 2 * y * y)
+        px = g * x + dx
+        py = g * y + dy
+        return np.stack([cal.fx * px + cal.cx, cal.fy * py + cal.cy], axis=1)
+
+    Rs, ts = [], []
+    for k in range(n_poses):
+        ang = 0.5 * np.sin(2 * np.pi * k / n_poses)
+        Rs.append(_so3_exp(np.array([0.0, ang, 0.0])))
+        ts.append(np.array([2.0 * k / n_poses,
+                            0.1 * np.sin(4 * np.pi * k / n_poses), 0.0]))
+    pts = np.stack([r.uniform(-2, 4, n_points), r.uniform(-2, 2, n_points),
+                    r.uniform(3.0, 8.0, n_points)], axis=1)
+
+    b = GraphBuilder()
+    for k in range(n_poses):
+        if k == 0 or init_noise == 0:
+            b.add_pose((Rs[k], ts[k]))
+        else:
+            dR = _so3_exp(r.normal(size=3) * init_noise * 0.3)
+            b.add_pose((Rs[k] @ dR, ts[k] + r.normal(size=3) * init_noise))
+    b.add_prior_pose(0, (Rs[0], ts[0]), sigmas=np.full(6, 1e-6))
+
+    b._add_points(pts + r.normal(size=(n_points, 3)) * init_noise)
+    b._add_rows("prior_point", n_points, idx=np.arange(n_points), mean=pts,
+                sqrt_info=np.broadcast_to(np.eye(3) / 0.1, (n_points, 3, 3)))
+
+    anchors = r.integers(0, n_poses, size=n_points)
+    Rs_a = np.stack(Rs)
+    ts_a = np.stack(ts)
+    cal9 = np.array([cal.fx, cal.fy, 0.0, cal.cx, cal.cy, cal.k1, cal.k2,
+                     cal.p1, cal.p2])
+    for o in range(obs_per_point):
+        cams = (anchors + o * 3) % n_poses
+        local = np.einsum("qji,qj->qi", Rs_a[cams], pts - ts_a[cams])
+        vis = local[:, 2] >= 0.3
+        uv = project_np(local) + r.normal(size=(n_points, 2)) * pixel_noise
+        q = np.flatnonzero(vis)
+        n = q.shape[0]
+        b._add_rows("projection", n, pose_idx=cams[q], point_idx=q,
+                    uv=uv[q], cal=np.broadcast_to(cal9, (n, 9)),
+                    body_R=np.broadcast_to(np.eye(3), (n, 3, 3)),
+                    body_t=np.zeros((n, 3)),
+                    sqrt_info=np.broadcast_to(np.eye(2), (n, 2, 2)))
+
+    graph, values = b.build(bucket=bucket, device=device, dtype=dtype)
+    return graph, values, ((Rs, ts), pts)
 
 
 def _render_plane_frame(K, R_cam, t_cam, scene, noise=0.0, seed=0):

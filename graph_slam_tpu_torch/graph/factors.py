@@ -6,15 +6,12 @@ indices, measurement, square-root information, robust parameters and an
 ``active`` mask. Error convention matches GTSAM: factor error =
 0.5 * ||whitened||^2 (or the Huber loss of the whitened norm).
 
-Ported: the pose prior and between tables (closed-form linearizations),
-the velocity and bias priors (closed form, J = S), the CombinedImuFactor
-table (closed-form 30-column Jacobian) and the OrientedPlane3Factor table
-(closed-form 9-column Jacobian); the tests hold both Jacobians to
-``torch.func.jacfwd`` and to the reference's autodiff Jacobian. The
-projection and point-prior tables exist with their fields so a
-``FactorGraph`` has the reference's shape; they must have capacity 0, and
-``total_error``/``linearize_blocks`` raise ``NotImplementedError`` on one
-that does not.
+Every table of the reference is ported, each linearized in closed form:
+the pose prior and between tables, the velocity, bias and point priors
+(J = S), the CombinedImuFactor table (30 columns), the OrientedPlane3Factor
+table (9 columns) and the Cal3DS2 projection table (9 columns: pose, then
+point, through both of ``project_point``'s clamps). The tests hold each
+Jacobian to ``torch.func.jacfwd`` and to the reference's autodiff Jacobian.
 """
 
 from __future__ import annotations
@@ -157,21 +154,6 @@ class FactorGraph(NamedTuple):
     imu: ImuTable
     projection: ProjectionTable
     prior_point: PriorPointTable
-
-
-# The ROADMAP item that ports each table that is not ported yet.
-_NOT_PORTED = {
-    "projection": "D (bundle adjustment)",
-    "prior_point": "D (bundle adjustment)",
-}
-
-
-def _check_ported(graph: FactorGraph):
-    for name, item in _NOT_PORTED.items():
-        if getattr(graph, name)[0].shape[0]:
-            raise NotImplementedError(
-                f"factor table {name!r} is not ported yet (ROADMAP item "
-                f"{item})")
 
 
 # ---------------------------------------------------------------------------
@@ -475,9 +457,49 @@ def _plane_lin(values: VariableArena, table: PlaneTable):
     return r * mask[:, None], J * mask[:, None, None]
 
 
+def _projection_parts(values: VariableArena, table: ProjectionTable):
+    """(pose R, body-frame point p_b, camera-frame point p_cam) per row:
+    the sensor pose is T_ws = X * body_P_sensor, p_cam = T_ws^-1 q."""
+    R = values.pose_R[table.pose_idx]
+    t = values.pose_t[table.pose_idx]
+    q = values.point[table.point_idx]
+    T_ws = se3.compose(se3.Pose(R, t), se3.Pose(table.body_R, table.body_t))
+    return R, se3.transform_to(se3.Pose(R, t), q), se3.transform_to(T_ws, q)
+
+
+def _projection_error_vec(values: VariableArena, table: ProjectionTable):
+    """Pixel reprojection error project(T_ws^-1 q) - uv (unwhitened)."""
+    from ..vision.cal3ds2 import Cal3DS2, project_point
+
+    p_cam = _projection_parts(values, table)[2]
+    return project_point(Cal3DS2.from_rows(table.cal), p_cam) - table.uv
+
+
+def _projection_lin(values: VariableArena, table: ProjectionTable):
+    """Whitened projection rows and their closed-form (F, 2, 9) Jacobians.
+
+    Under X' = X Exp(xi), xi = (w, v), the body-frame point moves by
+    d p_b = [p_b]x w - v, and under q' = q + dq by R^T dq; p_cam =
+    B_R^T (p_b - B_t). With D = d uv / d p_cam from
+    ``project_point_jacobian``: J_pose = D B_R^T [[p_b]x, -I],
+    J_point = D B_R^T R^T.
+    """
+    from ..vision.cal3ds2 import Cal3DS2, project_point_jacobian
+
+    R, p_b, p_cam = _projection_parts(values, table)
+    uv, D = project_point_jacobian(Cal3DS2.from_rows(table.cal), p_cam)
+    Db = D @ table.body_R.transpose(-1, -2)              # d uv / d p_b
+    J = torch.cat([Db @ so3.hat(p_b), -Db, Db @ R.transpose(-1, -2)],
+                  dim=-1)
+    S = table.sqrt_info
+    r = _mv(S, uv - table.uv)
+    s = _robust_scale(r, table.robust_kind, table.robust_k)
+    mask = table.active.to(r.dtype) * s
+    return r * mask[:, None], (S @ J) * mask[:, None, None]
+
+
 def total_error(graph: FactorGraph, values: VariableArena):
     """GTSAM ``NonlinearFactorGraph::error``: sum of factor losses (0-d)."""
-    _check_ported(graph)
     e = torch.zeros((), dtype=values.pose_t.dtype, device=values.pose_t.device)
     if graph.prior_pose.idx.shape[0]:
         e = e + _table_loss(graph.prior_pose,
@@ -485,7 +507,8 @@ def total_error(graph: FactorGraph, values: VariableArena):
     if graph.between.i.shape[0]:
         e = e + _table_loss(graph.between,
                             _between_parts(values, graph.between)[1])
-    for name, x in (("prior_vel", values.vel), ("prior_bias", values.bias)):
+    for name, x in (("prior_vel", values.vel), ("prior_bias", values.bias),
+                    ("prior_point", values.point)):
         tb = getattr(graph, name)
         if tb.idx.shape[0]:
             e = e + _table_loss(tb, x[tb.idx] - tb.mean)
@@ -497,6 +520,9 @@ def total_error(graph: FactorGraph, values: VariableArena):
     if graph.imu.i.shape[0]:
         e = e + _table_loss(graph.imu,
                             _imu_parts(_imu_rows(values, graph.imu)).e)
+    if graph.projection.pose_idx.shape[0]:
+        e = e + _table_loss(graph.projection,
+                            _projection_error_vec(values, graph.projection))
     return e
 
 
@@ -506,7 +532,6 @@ def linearize_blocks(graph: FactorGraph, values: VariableArena):
     Returns a list of blocks ``(r: (F, e), J: (F, e, td), cols: (F, td))``
     with ``cols`` indexing the global tangent layout.
     """
-    _check_ported(graph)
     lay = layout_of(values)
     blocks = []
     if graph.prior_pose.idx.shape[0]:
@@ -535,6 +560,14 @@ def linearize_blocks(graph: FactorGraph, values: VariableArena):
                           lay.pose_cols(j), lay.vel_cols(j), lay.bias_cols(j)],
                          dim=-1)
         blocks.append((r, J, cols))
+    if graph.projection.pose_idx.shape[0]:
+        r, J = _projection_lin(values, graph.projection)
+        cols = torch.cat([lay.pose_cols(graph.projection.pose_idx),
+                          lay.point_cols(graph.projection.point_idx)], dim=-1)
+        blocks.append((r, J, cols))
+    if graph.prior_point.idx.shape[0]:
+        r, J = _prior_vec_lin(graph.prior_point, values.point)
+        blocks.append((r, J, lay.point_cols(graph.prior_point.idx)))
     return blocks
 
 

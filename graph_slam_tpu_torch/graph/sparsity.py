@@ -15,8 +15,7 @@ contributions in a fixed order, where the card's scatter-add atomics do
 not.
 
 The host-side index build (``_np_cols``) is a numpy copy of the
-reference's. The projection and point-prior tables are not ported (ROADMAP
-item D): ``build_incidence`` raises on a graph that has either.
+reference's, every factor table included.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .factors import FactorGraph, _check_ported
+from .factors import FactorGraph
 from .variables import VariableArena, layout_of
 
 __all__ = ["Incidence", "build_incidence", "gather_sum", "hvp_fn_gather",
@@ -67,6 +66,9 @@ def _np_cols(graph: FactorGraph, values: VariableArena):
     def plane_cols(idx):
         return cols_of(lay.plane_off, 3, idx)
 
+    def point_cols(idx):
+        return cols_of(lay.point_off, 3, idx)
+
     cols = []     # (F, td) global column ids per table
     actives = []  # (F,) bool per table
     g = graph
@@ -94,6 +96,14 @@ def _np_cols(graph: FactorGraph, values: VariableArena):
              pose_cols(g.imu.j), vel_cols(g.imu.j), bias_cols(g.imu.j)],
             axis=1))
         actives.append(_host(g.imu.active))
+    if g.projection.pose_idx.shape[0]:
+        cols.append(np.concatenate(
+            [pose_cols(g.projection.pose_idx),
+             point_cols(g.projection.point_idx)], axis=1))
+        actives.append(_host(g.projection.active))
+    if g.prior_point.idx.shape[0]:
+        cols.append(point_cols(g.prior_point.idx))
+        actives.append(_host(g.prior_point.active))
     return cols, actives, lay.dim
 
 
@@ -107,7 +117,6 @@ def build_incidence(graph: FactorGraph, values: VariableArena,
     zeros and would otherwise pile useless entries onto variable slot 0,
     widening K). Rebuild after activating new rows.
     """
-    _check_ported(graph)
     cols_list, active_list, dim = _np_cols(graph, values)
     flats = []
     offset = 0

@@ -89,6 +89,10 @@ class TangentLayout(NamedTuple):
         return self.plane_off + 3 * idx[..., None] + torch.arange(
             3, device=idx.device)
 
+    def point_cols(self, idx):
+        return self.point_off + 3 * idx[..., None] + torch.arange(
+            3, device=idx.device)
+
 
 def layout_of(values: VariableArena) -> TangentLayout:
     return TangentLayout(

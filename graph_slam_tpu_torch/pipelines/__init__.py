@@ -1,5 +1,6 @@
 """Offline pipelines of the port (``graph_slam_tpu/pipelines`` counterpart)."""
 
+from .ba_imu import BaImuConfig, BaImuResult, run_ba_imu
 from .posegraph import (PoseGraphResult, build_graph_from_g2o,
                         build_pose_graph, run_g2o_file, run_pose_graph,
                         trajectory_arrays)
@@ -7,4 +8,5 @@ from .vio import VioConfig, VioResult, run_vio
 
 __all__ = ["PoseGraphResult", "build_pose_graph", "run_pose_graph",
            "build_graph_from_g2o", "run_g2o_file", "trajectory_arrays",
-           "VioConfig", "VioResult", "run_vio"]
+           "VioConfig", "VioResult", "run_vio",
+           "BaImuConfig", "BaImuResult", "run_ba_imu"]

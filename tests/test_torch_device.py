@@ -14,18 +14,22 @@ import torch
 
 from graph_slam_tpu_torch import convert
 from graph_slam_tpu_torch import imu
+from graph_slam_tpu_torch.config import SR4000
 from graph_slam_tpu_torch.core import extrinsics, se3
-from graph_slam_tpu_torch.datasets import (make_sphere_graph,
+from graph_slam_tpu_torch.datasets import (make_ba_graph, make_sphere_graph,
                                            make_vio_plane_scenario)
 from graph_slam_tpu_torch.device import resolve
 from graph_slam_tpu_torch.graph import (GraphBuilder, factors, online,
                                         variables)
 from graph_slam_tpu_torch.io import VROLog
 from graph_slam_tpu_torch.noise import models as noise
-from graph_slam_tpu_torch.pipelines import (VioConfig, build_graph_from_g2o,
-                                            build_pose_graph, run_g2o_file,
-                                            run_pose_graph, run_vio,
-                                            vio_planes)
+from graph_slam_tpu_torch.pipelines import (BaImuConfig, VioConfig,
+                                            build_graph_from_g2o,
+                                            build_pose_graph, run_ba_imu,
+                                            run_g2o_file, run_pose_graph,
+                                            run_vio, vio_planes)
+from graph_slam_tpu_torch.vision import (Cal3DS2, depth_to_cloud,
+                                         two_frame_ba)
 
 torch.set_num_threads(1)
 
@@ -125,7 +129,45 @@ def _propagation_fields():
                 depth=z((4, 4)))
 
 
+def _two_frame_run(**kw):
+    """Two frames 10 cm apart seeing eight points; the refined pose comes
+    back as numpy, so the device is read off the camera it built."""
+    pts = np.stack([np.linspace(-0.5, 0.5, 8), np.linspace(0.4, -0.4, 8),
+                    np.linspace(2.0, 3.0, 8)], axis=1)
+    K = Cal3DS2.make(250.0, 250.0, 90.0, 70.0, device="cpu")
+
+    def uv(p):
+        return (p[:, :2] / p[:, 2:] * 250.0 + np.array([90.0, 70.0]))
+
+    t = np.array([0.1, 0.0, 0.0])
+    (R, _), _, _ = two_frame_ba(pts, uv(pts), uv(pts - t), K,
+                                (np.eye(3), t), bucket=8, **kw)
+    return torch.as_tensor(R, device=resolve(kw.get("device")))
+
+
+def _ba_imu_run(**kw):
+    """Three frames of four landmarks, no IMU, LM."""
+    W = np.array([[0.0, 0.0, 3.0], [0.5, 0.2, 2.5], [-0.4, 0.3, 3.5],
+                  [0.2, -0.5, 3.0]])
+    frames = [{"uv": W[:, :2] / W[:, 2:] * 250.0 + 80.0, "pts3": W}
+              for _ in range(3)]
+    return run_ba_imu(frames, lambda i, j: [(k, k) for k in range(4)],
+                      {0: 0.0, 1: 0.1, 2: 0.2}, None, None, SR4000,
+                      cfg=BaImuConfig(use_imu=False, solver="lm", bucket=4),
+                      **kw).values.point
+
+
 ENTRY_POINTS = {
+    "make_ba_graph": lambda **kw: make_ba_graph(
+        4, 30, bucket=8, **kw)[1].point,
+    "Cal3DS2.make": lambda **kw: Cal3DS2.make(1.0, 1.0, 0.0, 0.0, **kw).fx,
+    "depth_to_cloud": lambda **kw: depth_to_cloud(
+        SR4000, np.ones((4, 5)), **kw)[0],
+    "two_frame_ba": _two_frame_run,
+    "run_ba_imu": _ba_imu_run,
+    "convert.cal3ds2_from_numpy": lambda **kw: convert.cal3ds2_from_numpy(
+        convert.to_numpy(Cal3DS2.make(1.0, 1.0, 0.0, 0.0, device="cpu")),
+        **kw).fx,
     "run_pose_graph": lambda **kw: run_pose_graph(
         _log(), bucket=8, **kw).values.pose_t,
     "build_pose_graph": lambda **kw: build_pose_graph(

@@ -609,3 +609,33 @@ def test_solvers_on_the_card_match_the_cpu():
                              damping=1e-3, pcg_iters=30)
         np.testing.assert_allclose(fleet.values.pose_t[k].cpu().numpy(),
                                    single.values.pose_t.numpy(), atol=1e-9)
+
+
+def test_sqrt_schur_step_and_linearize_blocks_on_the_card_match_the_cpu():
+    """A bundle-adjustment graph in float64: its linearized blocks (the
+    projection rows through the camera's clamps) and one square-root Schur
+    step, whose reduced system the card assembles with atomic adds."""
+    from graph_slam_tpu_torch.datasets import make_ba_graph
+    from graph_slam_tpu_torch.graph import (build_point_obs, layout_of,
+                                            linearize_blocks,
+                                            sqrt_schur_gn_step)
+
+    dev = _cuda()
+    g, v, _ = make_ba_graph(12, 400, seed=3, dtype=torch.float64,
+                            device="cpu", bucket=64)
+    gd, vd = _graph_to(g, dev), _graph_to(v, dev)
+    for (r, J, c), (rd, Jd, cd) in zip(linearize_blocks(g, v),
+                                       linearize_blocks(gd, vd)):
+        assert torch.equal(cd.cpu(), c)
+        for a, b in ((rd, r), (Jd, J)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                       atol=1e-9 * float(b.abs().max()))
+    tabs = [torch.as_tensor(t) for t in build_point_obs(
+        g, layout_of(v).point_cap)]
+    cpu = sqrt_schur_gn_step(g, v, *tabs, 1e-3, chunk=128)
+    card = sqrt_schur_gn_step(gd, vd, *[t.to(dev) for t in tabs], 1e-3,
+                              chunk=128)
+    for f in ("pose_R", "pose_t", "point"):
+        np.testing.assert_allclose(getattr(card, f).cpu().numpy(),
+                                   getattr(cpu, f).numpy(), rtol=0,
+                                   atol=1e-9, err_msg=f)

@@ -41,7 +41,8 @@ from graph_slam_tpu_torch.convert import (arena_from_numpy, graph_from_numpy,
                                           to_numpy)
 from graph_slam_tpu_torch.core import se3
 from graph_slam_tpu_torch.datasets import make_sphere_graph
-from graph_slam_tpu_torch.graph import (GraphBuilder, gn_optimize,
+from graph_slam_tpu_torch.graph import (GraphBuilder, ProjectionTable,
+                                        empty_table, gn_optimize,
                                         linearize_blocks, lm_optimize, solve,
                                         total_error, variables)
 from graph_slam_tpu_torch.io import VROLog, read_vro_log, write_vro_log
@@ -337,10 +338,20 @@ def test_unported_options_raise(kwargs):
 
 
 def test_unported_factor_table_raises(sphere):
+    """The projection table raised NotImplementedError until bundle
+    adjustment was ported; now an inactive projection row (pointing at a
+    point slot) adds nothing to the error, and an active one adds its
+    loss (tests/test_torch_ba.py holds the rows to the reference)."""
     _, _, gt, vt = sphere
-    proj = gt.projection._replace(pose_idx=torch.zeros(1, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="ROADMAP item D"):
-        total_error(gt._replace(projection=proj), vt)
+    proj = empty_table(ProjectionTable, 1, device="cpu")
+    vt = vt._replace(point=torch.tensor([[0.1, 0.2, 2.0]],
+                                        dtype=torch.float64))
+    e = total_error(gt, vt)
+    assert float(total_error(gt._replace(projection=proj), vt)) == float(e)
+    proj = proj._replace(active=torch.ones(1, dtype=torch.bool),
+                         sqrt_info=torch.eye(2, dtype=torch.float64)[None])
+    e1 = total_error(gt._replace(projection=proj), vt)
+    assert torch.isfinite(e1) and float(e1) > float(e)
 
 
 def test_cuda_device_without_a_card_raises():

@@ -35,7 +35,8 @@ from graph_slam_tpu.graph.factors import total_error as j_total_error
 from graph_slam_tpu.graph.variables import used_slot_mask as j_used_mask
 from graph_slam_tpu_torch.convert import (arena_from_numpy, graph_from_numpy,
                                           to_numpy)
-from graph_slam_tpu_torch.graph import (assemble_dense, band_halfwidth,
+from graph_slam_tpu_torch.graph import (ProjectionTable, assemble_dense,
+                                        band_halfwidth, empty_table,
                                         banded_direct_gn_optimize,
                                         banded_gn_optimize, build_incidence,
                                         chow_liu_tree, diag_precond,
@@ -180,10 +181,26 @@ def test_gather_products_match(sphere24, products):
 
 
 def test_build_incidence_refuses_unported_tables(sphere24):
+    """``build_incidence`` raised on a projection table until bundle
+    adjustment was ported; now an active projection row's pose and point
+    columns each gain one gather entry, and an inactive row none
+    (tests/test_torch_ba.py holds a BA graph's table to the reference)."""
     _, _, gt, vt = sphere24
-    proj = gt.projection._replace(pose_idx=torch.zeros(1, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="ROADMAP item D"):
-        build_incidence(gt._replace(projection=proj), vt)
+    vt = vt._replace(point=torch.zeros(1, 3, dtype=torch.float64))
+    base = build_incidence(gt, vt)
+    proj = empty_table(ProjectionTable, 2, device="cpu")
+    proj = proj._replace(pose_idx=torch.tensor([3, 5]),
+                         active=torch.tensor([True, False]))
+    inc = build_incidence(gt._replace(projection=proj), vt)
+    D = base.idx.shape[0]           # the last 3 columns: the point
+    assert inc.idx.shape[0] == D and inc.n_flat == base.n_flat + 18
+
+    def live(inc):
+        return (inc.idx < inc.n_flat).sum(dim=1)
+
+    gained = live(inc) - live(base)
+    assert gained[18:24].tolist() == [1] * 6
+    assert gained[D - 3:].tolist() == [1, 1, 1] and int(gained.sum()) == 9
 
 
 @pytest.fixture(scope="module")
