@@ -101,19 +101,35 @@ Phases, one JSON line each:
              corridor, with flat per-update time; (f) a checkpoint of
              (a)'s graph saved and loaded bit-equal; host syncs per frame
              and per rescue.
-12. profile — the replays of phases 9, 10 and 11 on their scenarios'
-             first 300 frames (timed in those phases) and one GN iteration
-             of (7d) again under ``torch.profiler``: launches per record
-             (per iteration), device busy share, top device ops. It runs
-             after every timed run, as a profiler session slows the
-             process's later launches.
+12. frontend — the visual frontend and ``OnlineSlam`` at 640 x 480
+             (RS435) on ``frontend_reference_ate.py``'s rendered box room
+             (frames rendered on the card, held bit-equal to the same
+             renderer on the CPU), ``global_loop_k=2``, every other setting
+             the default: (a) Harris over 1,000 frames and (b) SIFT over
+             300, each held to the JAX package's run of the same frames
+             (statuses on >= 99% of frames, keyframes within 1%, ATE
+             within 2%), (a) with a global loop edge; (c) the
+             first 64 frames of (a) on the card and on the CPU (statuses
+             equal, trajectories within 1e-5 m), their per-phase times
+             with the card synchronised at each phase's ends, host syncs
+             a frame, each extractor alone; frames/s and peak memory.
+13. profile — the replays of phases 9, 10 and 11 on their scenarios'
+             first 101 frames (timed in those phases; the rescue's and the
+             online engine's each end with a rescue), one GN iteration of
+             (7d) and (12c)'s 64 frames again under ``torch.profiler``:
+             launches per record (per iteration, per frame), device busy
+             share, top device ops. It runs after every timed run, as a
+             profiler session slows the process's later launches.
 
-Phases 3-12 are the main path, driven on the port's default device (the
+Phases 3-13 are the main path, driven on the port's default device (the
 card): the kernel's launch counter is set to 0 just before phases 3-8 and
 read just after (phases 6 and 7 on their own are held to 0 launches),
 again around phase 9, which launches no hand-written kernel, around phase
 10 and around phase 11, where each rescue whose previous frame had planes
-launches it once, and around each replay that phase 12 profiles. The
+launches it once, around phase 12 (held to 0: the frontend's work is
+torch operations, cuDNN, cuBLAS and cuSOLVER), and around each replay
+that phase 13 profiles (each held to its predictions, at least one in the
+rescue's and the online engine's). The
 region-grow kernel is timed on the fill inputs of real frames (phase
 ``frames``) and of a rescue, and the script
 prints the kernel summary line and, last, ``{"ok": true, "device":
@@ -141,8 +157,10 @@ GROW_SHAPES = [(8, 144, 176), (8, 480, 640), (2, 144, 176), (1, 480, 640)]
 MAIN_PATH_SHAPE = (1, 480, 640)
 # frames of each replay the profile phase profiles: the profiler's
 # post-processing costs ~0.25 ms a kernel (~6 min for a 2,000-frame online
-# replay's 1.4 M kernels), so it profiles a prefix of each scenario
-PROFILE_FRAMES = 300
+# replay's 1.4 M kernels), so it profiles a prefix of each scenario: the
+# shortest that holds a rescue, whose last record is the failed one into
+# frame 100 (``fail_every=100``)
+PROFILE_FRAMES = 101
 _T0 = time.perf_counter()
 
 
@@ -2564,7 +2582,289 @@ def phase_online(n_frames, scan_counts):
     return out, predictions, (sc, wall)
 
 
-def phase_profiles(vio_job, rescue_job, online_job, ba_job):
+FRONTEND_HARRIS_FRAMES = 1000
+FRONTEND_SIFT_FRAMES = 300
+FRONTEND_HELD_FRAMES = 64      # (c): the first frames of (a), card vs CPU
+FRONTEND_HELD = 1e-5           # (c): trajectories, card vs CPU, m
+FRONTEND_STATUS_SHARE = 0.99   # statuses as JAX's on at least this share
+FRONTEND_KEYFRAMES_REL = 0.01  # keyframe count within this of JAX's
+FRONTEND_ATE_REL = 0.02        # ATE within 2% of JAX's
+# The JAX package's runs of the same frames, on the CPU in float64 (JAX
+# 0.9.0; ``JAX_PLATFORMS=cpu python3 frontend_reference_ate.py --frames
+# 1000`` and ``... --frames 300 --features sift``, 417 s and 271 s): each
+# printed its statuses, one letter a frame, "F" then "SK" repeated then a
+# last "S" -- every second frame a keyframe -- as built here.
+FRONTEND_JAX = {
+    "harris": {"frames": 1000, "keyframes": 500, "ate_m": 0.0005363304169709378,
+               "lookback_edges": 2475, "global_edges": 1299,
+               "statuses": "F" + "SK" * 499 + "S"},
+    "sift": {"frames": 300, "keyframes": 150, "ate_m": 0.00048457549064933063,
+             "lookback_edges": 725, "global_edges": 334,
+             "statuses": "F" + "SK" * 149 + "S"},
+}
+
+
+class _SyncedTimer:
+    """A ``PhaseTimer`` whose phases start and end with the card
+    synchronised, so each phase's time holds its own device work."""
+
+    def __init__(self):
+        from graph_slam_tpu_torch.utils.profiling import PhaseTimer
+
+        self._inner = PhaseTimer()
+
+    def __call__(self, phase):
+        import contextlib
+
+        import torch
+
+        @contextlib.contextmanager
+        def timed():
+            torch.cuda.synchronize()
+            with self._inner(phase):
+                yield
+                torch.cuda.synchronize()
+
+        return timed()
+
+    def summary(self):
+        return self._inner.summary()
+
+
+def _render_frames(n):
+    """The ``n`` frames of ``frontend_reference_ate.room_path(n)``,
+    rendered on the card; its first and last frames are held bit-equal to
+    the same renderer's on the CPU."""
+    import torch
+
+    import frontend_reference_ate as fra
+    from graph_slam_tpu_torch.config import RS435
+
+    frames = list(fra.path_frames(RS435, n, device="cuda"))
+    tex, rays = fra.room_scene(RS435, "cpu")
+    R, t = fra.room_path(n)
+    for k in (0, n - 1):
+        want = fra.render_room_frame(RS435, R[k], t[k], tex, rays)
+        for got, ref in zip(frames[k], want):
+            _require(torch.equal(got.cpu(), ref),
+                     f"frame {k} rendered on the card differs from the "
+                     "CPU's")
+    return frames
+
+
+def _slam(features, device=None):
+    from graph_slam_tpu_torch.config import RS435, SlamParams
+    from graph_slam_tpu_torch.pipelines import OnlineSlam
+
+    return OnlineSlam(cam=RS435, params=SlamParams(), features=features,
+                      global_loop_k=2, device=device)
+
+
+def _slam_run(features, frames, device=None, timers=None):
+    """``OnlineSlam`` over ``frames`` then one final ``optimize()``: (the
+    session, its status letters, the loop's wall s, the final optimize's
+    wall s)."""
+    import torch
+
+    import frontend_reference_ate as fra
+
+    slam = _slam(features, device)
+    if timers is not None:
+        slam.timers = timers
+    sync = torch.cuda.synchronize if slam._device.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    statuses = "".join(fra.STATUS_LETTER[slam.process_frame(img, d, seq_id=k)]
+                       for k, (img, d) in enumerate(frames))
+    sync()
+    t1 = time.perf_counter()
+    slam.optimize()
+    sync()
+    return slam, statuses, t1 - t0, time.perf_counter() - t1
+
+
+def _slam_checks(slam, statuses, features, n_path):
+    """The run against the path and against the JAX package's run."""
+    import numpy as np
+
+    import frontend_reference_ate as fra
+
+    ref = FRONTEND_JAX[features]
+    _, t, _, seqs = slam.trajectory()
+    _, gt_t = fra.room_path(n_path)
+    ate = fra.ate(np.asarray(t, np.float64), gt_t[np.asarray(seqs)])
+    bt = slam.og.graph.between
+    act = bt.active.cpu().numpy()
+    lookback, global_ = fra.loop_edges(bt.i.cpu().numpy()[act],
+                                       bt.j.cpu().numpy()[act],
+                                       slam.params.lookback_nodes)
+    same = sum(a == b for a, b in zip(statuses, ref["statuses"]))
+    out = {"frames": len(statuses), "keyframes": slam.num_keyframes,
+           "failed": statuses.count("X"), "lookback_edges": lookback,
+           "global_edges": global_, "ate_m": ate, "jax_ate_m": ref["ate_m"],
+           "ate_diff_m": ate - ref["ate_m"],
+           "status_share_as_jax": same / len(ref["statuses"]),
+           "jax_keyframes": ref["keyframes"],
+           "jax_loop_edges": [ref["lookback_edges"], ref["global_edges"]],
+           "error": slam.error()}
+    _require(len(statuses) == ref["frames"],
+             f"{features}: {len(statuses)} frames, JAX ran {ref['frames']}")
+    _require(out["status_share_as_jax"] >= FRONTEND_STATUS_SHARE,
+             f"{features}: statuses as JAX's on "
+             f"{out['status_share_as_jax']:.4f} of the frames")
+    _require(abs(slam.num_keyframes - ref["keyframes"])
+             <= FRONTEND_KEYFRAMES_REL * ref["keyframes"],
+             f"{features}: {slam.num_keyframes} keyframes vs JAX's "
+             f"{ref['keyframes']}")
+    _require(abs(ate - ref["ate_m"]) <= FRONTEND_ATE_REL * ref["ate_m"],
+             f"{features}: ATE {ate * 1e3:.4f} mm vs JAX's "
+             f"{ref['ate_m'] * 1e3:.4f} mm")
+    return out
+
+
+def _per_frame(timers, n_frames):
+    return {k: v["total_s"] * 1e3 / n_frames for k, v in timers.items()}
+
+
+def _extractor_ms(frame, reps=20):
+    """Each extractor alone on one 640 x 480 frame (tensors on the card):
+    ms a call on the card (CUDA events, warm) and on the CPU (wall, one
+    warm call)."""
+    import torch
+
+    from graph_slam_tpu_torch.config import RS435
+    from graph_slam_tpu_torch.vision import extract_features, sift_features
+
+    host = [x.cpu() for x in frame]
+    out = {}
+    for name, fn in (("harris", extract_features), ("sift", sift_features)):
+        fn(RS435, *frame)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(reps):
+            fn(RS435, *frame)
+        end.record()
+        end.synchronize()
+        fn(RS435, *host)
+        t0 = time.perf_counter()
+        fn(RS435, *host)
+        out[name] = {"card_ms": start.elapsed_time(end) / reps,
+                     "cpu_ms": (time.perf_counter() - t0) * 1e3}
+    return out
+
+
+def _count_frontend_syncs(frames):
+    """Host syncs of an ``OnlineSlam`` run over ``frames``: the ones
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports (implicit syncs in
+    torch ops: the SVD's and solves' status reads, blocking copies) and the
+    explicit stream synchronisations of the one-copy read-backs."""
+    import torch
+
+    explicit = [0]
+    plain = torch.cuda.Stream.synchronize
+
+    def counted(self):
+        explicit[0] += 1
+        return plain(self)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.Stream.synchronize = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _slam_run("harris", frames)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.Stream.synchronize = plain
+    implicit = sum("synchroniz" in str(w.message) for w in caught)
+    return {"implicit": implicit, "explicit": explicit[0],
+            "per_frame": (implicit + explicit[0]) / len(frames)}
+
+
+def phase_frontend(smi):
+    """The visual frontend and ``OnlineSlam`` on the card at 640 x 480
+    (RS435), on ``frontend_reference_ate.py``'s rendered box room with
+    ``global_loop_k=2`` and every other setting the default: (a) Harris
+    over 1,000 frames and (b) SIFT over 300, each held to the JAX
+    package's run of the same frames (statuses, keyframes, ATE) with at
+    least one global loop edge in (a); (c) the first 64 frames of (a) on
+    the card and on the CPU, statuses equal and trajectories within 1e-5
+    m; the per-phase times of (c) with the card synchronised at each
+    phase's ends, the host syncs a frame, and each extractor alone.
+    Returns (the phase's line, (a)'s first frames for the profile)."""
+    import numpy as np
+    import torch
+
+    out = {"phase": "frontend", "card": smi}
+    t0 = time.perf_counter()
+    harris_frames = _render_frames(FRONTEND_HARRIS_FRAMES)
+    sift_frames = _render_frames(FRONTEND_SIFT_FRAMES)
+    out["render_s"] = time.perf_counter() - t0
+
+    for features, frames in (("harris", harris_frames),
+                             ("sift", sift_frames)):
+        torch.cuda.reset_peak_memory_stats()
+        slam, statuses, loop_s, opt_s = _slam_run(features, frames)
+        chk = _slam_checks(slam, statuses, features, len(frames))
+        chk.update(loop_s=loop_s, final_optimize_s=opt_s,
+                   frames_per_s=len(frames) / loop_s,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   ms_per_frame_by_phase=_per_frame(slam.timers.summary(),
+                                                    len(frames)),
+                   phase_calls={k: v["calls"] for k, v in
+                                slam.timers.summary().items()})
+        out["a_harris" if features == "harris" else "b_sift"] = chk
+        del slam
+    _require(out["a_harris"]["global_edges"] >= 1,
+             "the Harris run closed no global loop")
+
+    # (c) card against CPU on the first frames of (a)
+    held = harris_frames[:FRONTEND_HELD_FRAMES]
+    card, st_card, card_s, _ = _slam_run("harris", held)
+    cpu, st_cpu, cpu_s, _ = _slam_run(
+        "harris", [[x.cpu() for x in f] for f in held], device="cpu")
+    t_card, t_cpu = card.trajectory()[1], cpu.trajectory()[1]
+    diff = float(np.abs(t_card - t_cpu).max()) \
+        if t_card.shape == t_cpu.shape else float("inf")
+    out["c_card_vs_cpu"] = {"frames": len(held), "statuses_equal":
+                            st_card == st_cpu, "keyframes": card.num_keyframes,
+                            "max_abs_m": diff, "card_loop_s": card_s,
+                            "cpu_loop_s": cpu_s}
+    _require(st_card == st_cpu, "card and CPU statuses differ")
+    _require(diff <= FRONTEND_HELD,
+             f"card vs CPU trajectories {diff:.3g} m apart")
+    synced, _, synced_s, _ = _slam_run("harris", held, timers=_SyncedTimer())
+    out["c_ms_per_frame_synced"] = dict(
+        _per_frame(synced.timers.summary(), len(held)),
+        wall=synced_s * 1e3 / len(held))
+    out["c_syncs"] = _count_frontend_syncs(held)
+    out["extractors_640x480"] = _extractor_ms(harris_frames[0])
+    out["seconds"] = time.perf_counter() - t0
+    _emit(out)
+    return out, (held, card_s)
+
+
+def _profile_frontend(job):
+    """(c)'s 64 frames again under the profiler: launches a frame, device
+    busy share against the same run's wall without the profiler, top
+    device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    frames, wall_s = job
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, prof_s, _ = _slam_run("harris", frames)
+    rows = _device_rows(prof)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    return {"frames": len(frames), "wall_s": wall_s,
+            "profiled_wall_s": prof_s, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / wall_s,
+            "launches_per_frame": sum(r[1] for r in rows) / len(frames),
+            "top_device_ops": [{"name": k[:90], "count": c, "ms": us / 1e3}
+                               for us, c, k in rows[:12]]}
+
+
+def phase_profiles(vio_job, rescue_job, online_job, ba_job, frontend_job):
     """The VIO, rescue and online prefix replays and one GN iteration of
     ``ba_sqrt_100k`` again under the profiler, after every timed run of
     the script: a profiler session leaves the process slower to launch
@@ -2578,13 +2878,16 @@ def phase_profiles(vio_job, rescue_job, online_job, ba_job):
     _require(region_grow.launches == 0, "the VIO path launched region_grow")
     out["ba"] = _profile_ba(ba_job)
     _require(region_grow.launches == 0, "the BA path launched region_grow")
+    out["frontend"] = _profile_frontend(frontend_job)
+    _require(region_grow.launches == 0,
+             "the frontend path launched region_grow")
     launches = {}
     for name, job, replay in (("rescue", rescue_job, _rescue_replay),
                               ("online", online_job, _online_flagship)):
         region_grow.launches = 0
         out[name] = _profile_replay(*job, replay)
         launches[name] = region_grow.launches
-        _require(launches[name] == out[name]["predictions"],
+        _require(launches[name] == out[name]["predictions"] >= 1,
                  f"the {name} profile launched region_grow "
                  f"{launches[name]} times for {out[name]['predictions']} "
                  "predictions")
@@ -2663,7 +2966,13 @@ def main(argv=None):
     _require(online_launches > 0 and online_launches == predictions,
              f"the online engine launched region_grow {online_launches} "
              f"times for {predictions} predictions on the card")
-    profiled = phase_profiles(vio_job, rescue_job, online_job, ba_job)
+    region_grow.launches = 0
+    _, frontend_job = phase_frontend(smi)
+    frontend_launches = region_grow.launches
+    _require(frontend_launches == 0, "the frontend phase launched "
+             f"region_grow {frontend_launches} times")
+    profiled = phase_profiles(vio_job, rescue_job, online_job, ba_job,
+                              frontend_job)
     rescue_launches += profiled["rescue"]
     online_launches += profiled["online"]
     phase_frames()
@@ -2676,7 +2985,8 @@ def main(argv=None):
         "launches": launches + rescue_launches + online_launches,
         "launches_by_path": {"posegraph": 0, "ba": ba_launches,
                              "planes": launches, "rescue": rescue_launches,
-                             "online": online_launches},
+                             "online": online_launches,
+                             "frontend": frontend_launches},
         "max_abs_err": max(timing["mismatches"],
                            rescue_timing["mismatches"]),
         "shape": timing["shape"], "ms": timing["device_us"] / 1e3,

@@ -27,10 +27,16 @@ Ported so far:
   eliminations (``graph.ba_solve``), marginal covariances
   (``graph.marginals``), ``vision`` (Cal3DS2, depth backprojection,
   two-frame BA, ``TrackBook``), ``datasets.make_ba_graph`` and
-  ``pipelines.run_ba_imu``.
+  ``pipelines.run_ba_imu``;
+- the visual frontend and online SLAM: Harris and SIFT extraction,
+  descriptor matching, batched RANSAC and PnP, the VRO frontend and place
+  recognition (``vision``), ``pipelines.OnlineSlam``, ``plane_check``,
+  ``features_from_store``, ``imu.euler``, ``tools`` (the VRO-log tools),
+  ``io.frames`` and ``utils.metrics``.
 
-Not ported yet: the feature frontend, online SLAM, mapping, serving and
-the CLI (ROADMAP item F), and multi-device sharding (item G).
+Not ported yet: the rest of the numpy-only modules (RGB-D readers,
+colors, meshes, publishing, the native loader), mapping, serving and the
+CLI (ROADMAP items F1 and F3), and multi-device sharding (item G).
 
 Importing the package changes no process-wide torch setting: tensors
 default to whatever dtype the caller has set (entry points take

@@ -6,6 +6,8 @@ example), so this module needs no jax. ``graph_from_numpy`` carries every
 table (the IMU, plane, projection and point-prior tables included) and
 ``arena_from_numpy`` an arena with its velocities, biases, plane and point
 landmarks; ``cal3ds2_from_numpy`` a camera's Cal3DS2 intrinsics;
+``feature_frame_from_numpy`` a frame's keypoints, descriptors and 3D lift
+(so matching can be held to JAX on the same features);
 ``imu_params_from_numpy`` and ``preint_from_numpy`` carry the IMU noise
 model and a preintegration state, ``plane_node_from_numpy`` a frame's
 plane set (``PlaneNodeDetection``, numpy on both sides). Integer fields become int64 (torch's
@@ -28,9 +30,10 @@ from .graph.variables import VariableArena
 from .imu import ImuParams, PreintState
 from .planes.plane_node import PlaneNodeDetection
 from .vision.cal3ds2 import Cal3DS2
+from .vision.features import FeatureFrame
 
 __all__ = ["tensor", "graph_from_numpy", "arena_from_numpy",
-           "cal3ds2_from_numpy",
+           "cal3ds2_from_numpy", "feature_frame_from_numpy",
            "imu_params_from_numpy", "preint_from_numpy",
            "plane_node_from_numpy",
            "PropagationInputs", "propagation_inputs", "to_numpy"]
@@ -75,6 +78,16 @@ def cal3ds2_from_numpy(cal, *, device=None,
                        dtype=torch.float64) -> Cal3DS2:
     """A JAX ``Cal3DS2`` (numpy leaves) -> the port's ``Cal3DS2``."""
     return _convert(Cal3DS2, cal, resolve(device), dtype)
+
+
+def feature_frame_from_numpy(frame, *, device=None) -> FeatureFrame:
+    """A JAX ``FeatureFrame`` (numpy leaves) -> the port's: ``uv``,
+    ``desc`` and ``pts3`` float32 as the extractors make them, ``valid``
+    bool."""
+    device = resolve(device)
+    return FeatureFrame(*(tensor(getattr(frame, f), device=device,
+                                 dtype=torch.float32)
+                          for f in FeatureFrame._fields))
 
 
 def imu_params_from_numpy(params, *, device=None,

@@ -1,6 +1,8 @@
-"""Log IO of the port (``graph_slam_tpu/io`` counterpart): VRO logs, and
-trajectory, PLY, g2o and marginals files."""
+"""Log IO of the port (``graph_slam_tpu/io`` counterpart): VRO logs,
+trajectory, PLY, g2o and marginals files, and ``.gsf`` RGB-D frames."""
 
+from .frames import (FrameStore, decode_frame, encode_frame, load_frame,
+                     save_frame)
 from .trajectory import (Trajectory, read_g2o, read_marginals,
                          read_trajectory, write_g2o, write_graph_summary,
                          write_marginals, write_ply_points, write_trajectory,
@@ -9,6 +11,7 @@ from .vro_log import (FAILED_INFO_SENTINEL, VROLog, failed_edge, read_vro_log,
                       write_vro_log)
 
 __all__ = [
+    "encode_frame", "decode_frame", "save_frame", "load_frame", "FrameStore",
     "VROLog", "read_vro_log", "write_vro_log", "failed_edge",
     "FAILED_INFO_SENTINEL",
     "Trajectory", "read_trajectory", "write_trajectory", "write_ply_points",

@@ -12,8 +12,9 @@ normal-equations Schur (``ba_gn_optimize``), any other dtype the
 square-root Schur (``ba_gn_optimize_sqrt``), whose normal equations would
 cancel in float32, unless a feature track is longer than
 ``_SQRT_MAX_TRACK`` observations, when generic LM runs instead.
-Landmark-sharded solving and ``features_from_store`` (which needs the
-feature frontend) are not ported (ROADMAP items G and F2).
+``features_from_store`` builds ``run_ba_imu``'s inputs from raw RGB-D
+frames through the feature frontend. Landmark-sharded solving is not
+ported (ROADMAP item G).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from ..imu import (ImuParams, ImuStream, find_index_at, init_preint,
 from ..vision.ba import TrackBook
 from .vio_kernel import _pad_window
 
-__all__ = ["BaImuConfig", "BaImuResult", "run_ba_imu"]
+__all__ = ["BaImuConfig", "BaImuResult", "run_ba_imu", "features_from_store"]
 
 # longest feature track the square-root Schur accepts before run_ba_imu
 # falls back to LM: every landmark's QR stack pads to the longest track
@@ -62,6 +63,43 @@ class BaImuResult:
     n_landmarks: int
     n_projection_factors: int
     n_imu_factors: int
+
+
+def features_from_store(frames_provider, seq_ids, K,
+                        max_features: int = 256, ratio: float = 0.8,
+                        features: str = "harris", *, device=None):
+    """Build ``run_ba_imu``'s (frames, matches) inputs from raw RGB-D frames.
+
+    Extracts features per frame on ``device`` (``None``: the card; the
+    driver's featureExtraction role, test_ba_imu_graph.cpp:79-120) and
+    returns a consecutive-pair matcher backed by the batched descriptor
+    matmul. Each frame's features and each pair's matches come back to the
+    host in one copy.
+    """
+    from ..device import to_host
+    from ..vision.frontend import get_extractor
+    from ..vision.matching import match_descriptors
+
+    extract_features = get_extractor(features)
+    device = resolve(device)
+    ffs = []
+    frames_out = []
+    for s in seq_ids:
+        fr = frames_provider(int(s))
+        if fr is None:
+            raise FileNotFoundError(f"missing frame for seq {s}")
+        f = extract_features(K, fr[0], fr[1], max_features=max_features,
+                             device=device)
+        ffs.append(f)
+        uv, pts3 = to_host((f.uv, f.pts3))
+        frames_out.append({"uv": uv, "pts3": pts3})
+
+    def matches(i, j):
+        idx, ok = match_descriptors(ffs[j].desc, ffs[i].desc, ratio=ratio)
+        idx, ok = to_host((idx, ok & ffs[j].valid & ffs[i].valid[idx]))
+        return [(int(idx[k]), int(k)) for k in np.nonzero(ok)[0]]
+
+    return frames_out, matches
 
 
 def run_ba_imu(frames, matches: Callable, img_times,

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from . import oriented_plane
@@ -100,13 +99,11 @@ def hypothesis_uniforms(key, max_planes: int, n_hyp: int = 512):
     uniforms in [0, 1), drawn on the CPU from a ``torch.Generator`` seeded
     from ``key``, a tuple of non-negative ints, through numpy's
     ``SeedSequence`` (the role of ``jax.random.fold_in``: distinct tuples,
-    independent draws). The caller moves them to the points' device."""
-    seed = np.random.SeedSequence([int(k) for k in key]).generate_state(
-        1, np.uint64)[0]
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(int(seed))
-    return torch.rand((max_planes, n_hyp, 3), generator=gen,
-                      dtype=torch.float64)
+    independent draws; ``vision.matching.uniforms``). The caller moves
+    them to the points' device."""
+    from ..vision.matching import uniforms
+
+    return uniforms(key, (max_planes, n_hyp, 3), "cpu")
 
 
 def _sample(u, remaining):

@@ -249,9 +249,11 @@ def test_noise_models_match_jax(name):
 
 @pytest.mark.parametrize("precision", [None, "high"])
 def test_import_changes_no_process_wide_setting(precision):
-    """Importing the port, in a fresh process, leaves torch's default dtype
-    float32 and its float32 matmul precision what the caller set (TF32
-    off, torch's default, when the caller set nothing)."""
+    """Importing the port (its vision and online SLAM too), in a fresh
+    process, leaves torch's default dtype float32, its float32 matmul
+    precision what the caller set (TF32 off, torch's default, when the
+    caller set nothing) and cuDNN's TF32 switch at torch's default (the
+    extractors turn it off only around their own convolutions)."""
     import os
     import subprocess
     import sys
@@ -260,11 +262,14 @@ def test_import_changes_no_process_wide_setting(precision):
     if precision:
         code += f"torch.set_float32_matmul_precision({precision!r})\n"
     code += ("import graph_slam_tpu_torch, graph_slam_tpu_torch.pipelines\n"
+             "import graph_slam_tpu_torch.vision\n"
+             "import graph_slam_tpu_torch.pipelines.online_slam\n"
              "print(torch.get_default_dtype(),"
-             " torch.get_float32_matmul_precision())\n")
+             " torch.get_float32_matmul_precision(),"
+             " torch.backends.cudnn.allow_tf32)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
                          capture_output=True, text=True, check=True,
                          timeout=120).stdout.split()
-    assert out == ["torch.float32", precision or "highest"]
+    assert out == ["torch.float32", precision or "highest", "True"]

@@ -29,6 +29,8 @@ from graph_slam_tpu_torch.pipelines import (BaImuConfig, VioConfig,
                                             run_g2o_file, run_pose_graph,
                                             run_vio, vio_planes)
 from graph_slam_tpu_torch.vision import (Cal3DS2, depth_to_cloud,
+                                         extract_features, make_ba_fn,
+                                         make_feature_cache, sift_features,
                                          two_frame_ba)
 
 torch.set_num_threads(1)
@@ -157,7 +159,39 @@ def _ba_imu_run(**kw):
                       **kw).values.point
 
 
+def _frame(h=48, w=56):
+    """A random texture at 2 m."""
+    img = np.random.default_rng(0).uniform(0, 255, (h, w)).astype(np.float32)
+    return img, np.full((h, w), 2.0, np.float32)
+
+
+def _online_slam(**kw):
+    from graph_slam_tpu_torch.pipelines import OnlineSlam
+
+    return OnlineSlam(cam=SR4000, **kw).og.values.pose_t
+
+
+def _feature_frame(**kw):
+    f = extract_features(SR4000, *_frame(), max_features=8, device="cpu")
+    return convert.feature_frame_from_numpy(convert.to_numpy(f), **kw).uv
+
+
+def _euler(**kw):
+    from graph_slam_tpu_torch.imu.euler import integrate_euler
+
+    return integrate_euler(np.zeros((3, 3)), 0.01, **kw)
+
+
 ENTRY_POINTS = {
+    "extract_features": lambda **kw: extract_features(
+        SR4000, *_frame(), max_features=8, **kw).uv,
+    "sift_features": lambda **kw: sift_features(
+        SR4000, *_frame(), max_features=8, n_octaves=2, **kw).uv,
+    "make_feature_cache": lambda **kw: make_feature_cache(
+        {0: _frame()}.get, SR4000, max_features=8, **kw)(0).uv,
+    "OnlineSlam": _online_slam,
+    "convert.feature_frame_from_numpy": _feature_frame,
+    "integrate_euler": _euler,
     "make_ba_graph": lambda **kw: make_ba_graph(
         4, 30, bucket=8, **kw)[1].point,
     "Cal3DS2.make": lambda **kw: Cal3DS2.make(1.0, 1.0, 0.0, 0.0, **kw).fx,
@@ -239,6 +273,46 @@ def test_entry_point_defaults_to_the_card(name):
     if torch.cuda.is_available():
         assert call().device.type == "cuda"
     else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
+
+
+def _host_entry_points():
+    """Entry points that return host arrays: each computes on ``device``
+    (the card unless told otherwise); ``device="cpu"`` runs them here."""
+    from graph_slam_tpu_torch import tools
+    from graph_slam_tpu_torch.pipelines import (features_from_store,
+                                                plane_check)
+
+    plane = np.array([0.0, 0.0, 1.0, -2.0])
+    cov = np.eye(3) * 1e-4
+    return {
+        "features_from_store": lambda **kw: features_from_store(
+            {0: _frame()}.get, [0], SR4000, max_features=8, **kw),
+        "make_frame_matcher": lambda **kw: tools.make_frame_matcher(
+            {0: _frame()}.get, SR4000, max_features=8, **kw),
+        "make_ba_fn": lambda **kw: make_ba_fn({0: _frame()}.get, SR4000,
+                                              max_features=8, **kw),
+        "compute_trans_difference": lambda **kw:
+            tools.compute_trans_difference(_log(), _log(), **kw),
+        "plane_pair_mahalanobis": lambda **kw:
+            plane_check.plane_pair_mahalanobis(plane, cov, plane, cov,
+                                               np.zeros(6), np.eye(6) * 1e-4,
+                                               **kw),
+        "plane_set_consistency": lambda **kw:
+            plane_check.plane_set_consistency([plane], [cov], [plane], [cov],
+                                              np.zeros(6), np.eye(6) * 1e-4,
+                                              **kw),
+        "check_vo_edges": lambda **kw: plane_check.check_vo_edges(
+            _log(3), lambda s: ([plane], [cov]), **kw),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_host_entry_points()))
+def test_host_entry_point_defaults_to_the_card(name):
+    call = _host_entry_points()[name]
+    assert call(device="cpu") is not None
+    if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
 

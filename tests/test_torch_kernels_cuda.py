@@ -639,3 +639,149 @@ def test_sqrt_schur_step_and_linearize_blocks_on_the_card_match_the_cpu():
         np.testing.assert_allclose(getattr(card, f).cpu().numpy(),
                                    getattr(cpu, f).numpy(), rtol=0,
                                    atol=1e-9, err_msg=f)
+
+
+# ------------------------------------------------- the visual frontend
+def _room_frames(n, path=1000):
+    """The first frames of ``chip_smoke.py``'s 640 x 480 box room."""
+    import frontend_reference_ate as fra
+    from graph_slam_tpu_torch.config import RS435
+
+    tex, rays = fra.room_scene(RS435)
+    R, t = fra.room_path(path)
+    return RS435, [tuple(x.numpy() for x in fra.render_room_frame(
+        RS435, R[k], t[k], tex, rays)) for k in range(n)]
+
+
+@pytest.mark.parametrize("extractor", ["harris", "sift"])
+def test_extractor_on_the_card_matches_the_cpu_at_640x480(extractor):
+    """One 640 x 480 frame through each extractor on the card and on the
+    CPU: the same keypoints, each with its descriptor within 1e-5 (float32
+    sums in another order). Two keypoints whose responses agree to ~1e-6
+    may trade slots in the top-k, so the keypoints are held as a set and
+    each descriptor at its keypoint."""
+    from graph_slam_tpu_torch.vision import get_extractor
+
+    dev = _cuda()
+    K, frames = _room_frames(1)
+    img, depth = frames[0]
+    fn = get_extractor(extractor)
+    cpu = fn(K, img, depth, device="cpu")
+    card = fn(K, img, depth, device=dev)
+    assert card.uv.device.type == "cuda"
+    assert int(cpu.valid.sum()) > 200
+
+    uv, desc, pts3, valid = (x.cpu().numpy() for x in card)
+    uv_c, desc_c, pts3_c, valid_c = (x.numpy() for x in cpu)
+    assert sorted(map(tuple, uv)) == sorted(map(tuple, uv_c))
+    for i in range(len(uv)):
+        same = np.nonzero((uv_c == uv[i]).all(1))[0]
+        err = np.abs(desc_c[same] - desc[i]).max(1)
+        j = same[np.argmin(err)]
+        assert err.min() < 1e-5, (i, uv[i], err.min())
+        assert valid[i] == valid_c[j]
+        np.testing.assert_allclose(pts3[i], pts3_c[j], atol=1e-5)
+
+
+def test_frontend_convolutions_run_without_tf32(monkeypatch):
+    """Every cuDNN convolution of the extractors runs with TF32 off while
+    torch's default (TF32 allowed) stands outside them; a convolution on
+    the card agrees with a float64 one to float32 rounding, which TF32's
+    10-bit mantissa would miss by ~1e-3."""
+    import torch.nn.functional as F
+
+    from graph_slam_tpu_torch.vision import extract_features, sift_features
+    from graph_slam_tpu_torch.vision.features import conv2
+
+    dev = _cuda()
+    assert torch.backends.cudnn.allow_tf32          # torch's default
+    seen = []
+    plain = F.conv2d
+
+    def recording(*args, **kw):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(F, "conv2d", recording)
+    K, frames = _room_frames(1)
+    img, depth = (torch.as_tensor(x, device=dev) for x in frames[0])
+    extract_features(K, img, depth)
+    sift_features(K, img, depth)
+    assert len(seen) > 40 and not any(seen)
+    assert torch.backends.cudnn.allow_tf32           # restored
+    monkeypatch.undo()
+
+    r = np.random.default_rng(0)
+    x = r.uniform(0, 255, (480, 640))
+    k = r.normal(size=(5, 5))
+    card = conv2(torch.as_tensor(x, dtype=torch.float32, device=dev),
+                 torch.as_tensor(k, dtype=torch.float32, device=dev))
+    exact = conv2(torch.as_tensor(x), torch.as_tensor(k))
+    err = float((card.cpu().double() - exact).abs().max()
+                / exact.abs().max())
+    assert err < 1e-5, err
+
+
+def test_matchers_on_the_card_match_the_cpu():
+    """The same features and the same keyed draws on the card and on the
+    CPU: pairwise and batched RANSAC and PnP give the same inliers and
+    transforms within 1e-5."""
+    from graph_slam_tpu_torch.vision import (Cal3DS2, extract_features,
+                                             match_frames_device,
+                                             match_one_to_many, pnp_ransac)
+    from graph_slam_tpu_torch.vision.features import stack_frames
+
+    dev = _cuda()
+    K, frames = _room_frames(5)
+    cpu = [extract_features(K, i, d, device="cpu") for i, d in frames]
+    card = [type(f)(*(x.to(dev) for x in f)) for f in cpu]
+    for a, b in ((match_frames_device((0,), cpu[0], cpu[2]),
+                  match_frames_device((0,), card[0], card[2])),
+                 (match_one_to_many((1,), cpu[4], stack_frames(cpu[:3])),
+                  match_one_to_many((1,), card[4], stack_frames(card[:3])))):
+        R, t, info, n, ok = a
+        Rd, td, infod, nd, okd = b
+        assert torch.equal(okd.cpu(), ok) and torch.equal(nd.cpu(), n)
+        assert bool(ok.all())
+        for x, y in ((Rd, R), (td, t)):
+            np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), atol=1e-5)
+        np.testing.assert_allclose(infod.cpu().numpy(), info.numpy(),
+                                   rtol=1e-5, atol=1e-5 * float(
+                                       info.abs().max()))
+    cal = Cal3DS2.make(K.fx, K.fy, K.cx, K.cy, device="cpu")
+    pts, uv = cpu[0].pts3.double(), cpu[2].uv.double()
+    valid = cpu[0].valid & cpu[2].valid
+    Rp, tp, mp, okp = pnp_ransac((2,), pts, uv, valid, cal)
+    Rq, tq, mq, okq = pnp_ransac((2,), pts.to(dev), uv.to(dev),
+                                 valid.to(dev), Cal3DS2.make(
+                                     K.fx, K.fy, K.cx, K.cy, device=dev))
+    assert bool(okq) == bool(okp) and torch.equal(mq.cpu(), mp)
+    np.testing.assert_allclose(tq.cpu().numpy(), tp.numpy(), atol=1e-6)
+
+
+def test_online_slam_on_the_card_matches_the_cpu():
+    """Twelve 640 x 480 frames of the box room through ``OnlineSlam``
+    (global tier on) on the card and on the CPU: the same statuses and
+    edges, trajectories within 1e-5 m."""
+    from graph_slam_tpu_torch.config import SlamParams
+    from graph_slam_tpu_torch.pipelines import OnlineSlam
+
+    _cuda()
+    K, frames = _room_frames(12)
+    runs = []
+    for device in (None, "cpu"):
+        slam = OnlineSlam(cam=K, params=SlamParams(optimize_step=3),
+                          global_loop_k=2, global_loop_min_gap=3,
+                          device=device)
+        st = [slam.process_frame(i, d, seq_id=k)
+              for k, (i, d) in enumerate(frames)]
+        slam.optimize()
+        runs.append((slam, st))
+    (card, st_card), (cpu, st_cpu) = runs
+    assert card.og.values.pose_t.device.type == "cuda"
+    assert st_card == st_cpu and card.num_keyframes >= 6
+    lc, lp = card.vro_log(), cpu.vro_log()
+    np.testing.assert_array_equal(lc.id_from, lp.id_from)
+    np.testing.assert_array_equal(lc.id_to, lp.id_to)
+    np.testing.assert_allclose(card.trajectory()[1], cpu.trajectory()[1],
+                               atol=1e-5)
