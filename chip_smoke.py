@@ -113,7 +113,30 @@ Phases, one JSON line each:
              equal, trajectories within 1e-5 m), their per-phase times
              with the card synchronised at each phase's ends, host syncs
              a frame, each extractor alone; frames/s and peak memory.
-13. profile — the replays of phases 9, 10 and 11 on their scenarios'
+13. cli    — the command line, ``graph_slam_tpu_torch.cli.main(argv)`` (what
+             ``python -m graph_slam_tpu_torch`` calls) in this process:
+             (a) ``slam --camera rs435 --global-loop-k 2`` over a .gsf store
+             of (12a)'s first 300 frames (rendered on the card), against
+             ``OnlineSlam`` fed the decoded frames (statuses equal,
+             trajectory within 1e-6 m) and the JAX package's run of them
+             (pinned below: statuses on >= 99% of frames, keyframes within
+             1%, ATE within 2%), then ``evaluate`` against the path (the
+             same ATE); (b) ``tsdf --n 512 --size 8`` over (a): the mesh on
+             the room's faces, the device extraction bit-equal to the plain
+             numpy one, ms an integration beside its bound, peak memory,
+             and 10 frames at 128^3 card against CPU (flipped voxels
+             counted); (c) ``map --voxel 0.02``, ``filter`` and ``mesh`` of
+             its PCD (read back equal to the cloud written) and ``video
+             --every 50``; (d) ``serve --port 0`` in a thread, (a)'s frames
+             streamed over loopback (statuses as (a)'s, trajectory within
+             1e-6 m of an in-process session with its settings; frames/s);
+             (e) ``vio --frames --plane-mode rescue`` on the ``online``
+             phase's scenario written to files (VRO log, VN100 log, times,
+             SR4000 .gsf frames) at its configuration, held to the rescue's
+             gates; (f) one ``python -m graph_slam_tpu_torch posegraph``
+             subprocess against the golden chi2, ``presets`` and the native
+             IO runtime.
+14. profile — the replays of phases 9, 10 and 11 on their scenarios'
              first 101 frames (timed in those phases; the rescue's and the
              online engine's each end with a rescue), one GN iteration of
              (7d) and (12c)'s 64 frames again under ``torch.profiler``:
@@ -121,14 +144,15 @@ Phases, one JSON line each:
              share, top device ops. It runs after every timed run, as a
              profiler session slows the process's later launches.
 
-Phases 3-13 are the main path, driven on the port's default device (the
+Phases 3-14 are the main path, driven on the port's default device (the
 card): the kernel's launch counter is set to 0 just before phases 3-8 and
 read just after (phases 6 and 7 on their own are held to 0 launches),
 again around phase 9, which launches no hand-written kernel, around phase
 10 and around phase 11, where each rescue whose previous frame had planes
 launches it once, around phase 12 (held to 0: the frontend's work is
-torch operations, cuDNN, cuBLAS and cuSOLVER), and around each replay
-that phase 13 profiles (each held to its predictions, at least one in the
+torch operations, cuDNN, cuBLAS and cuSOLVER), around phase 13 (its
+``vio`` run's predictions, each one launch), and around each replay
+that phase 14 profiles (each held to its predictions, at least one in the
 rescue's and the online engine's). The
 region-grow kernel is timed on the fill inputs of real frames (phase
 ``frames``) and of a rescue, and the script
@@ -139,6 +163,7 @@ and the repository beside it; it imports no JAX.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -2864,6 +2889,494 @@ def _profile_frontend(job):
                                for us, c, k in rows[:12]]}
 
 
+# -- the command line: ``python -m graph_slam_tpu_torch`` from RGB-D frames --
+
+CLI_FRAMES = 300          # (a): the first frames of the frontend's Harris path
+CLI_TSDF_N = 512          # (b): the fused grid, 8 m a side
+CLI_TSDF_SIZE = 8.0
+CLI_HELD_N = 128          # (b): card against CPU on the first frames
+CLI_HELD_FRAMES = 10
+CLI_FLIP_SHARE = 1e-4     # (b): weights may differ on this share of voxels
+CLI_TSDF_HELD = 1e-5      # (b): tsdf, card vs CPU, where both updated
+CLI_ROOM_SHARE = 0.99     # (b): vertices within 2 voxels of a face of the room
+CLI_SLAM_HELD = 1e-6      # (a), (d): CLI and service against in-process runs, m
+CLI_VIO_FRAMES = 2000     # (e): the rescue phase's scenario
+# (a)'s JAX reference: the JAX package's OnlineSlam (float64, CPU, JAX
+# 0.9.0) on the same decoded .gsf frames, ``global_loop_k=2``:
+#     JAX_PLATFORMS=cpu python3 frontend_reference_ate.py --frames 300 \
+#         --path 1000 --gsf DIR
+# (100 s on a CPU), which printed these statuses, one letter a frame
+CLI_JAX = {"frames": 300, "keyframes": 150, "ate_m": 0.0005764502266528189,
+           "lookback_edges": 725, "global_edges": 290,
+           "statuses": "F" + "SK" * 149 + "S"}
+# the online phase's in-process flagship on the same scenario (PERF.md):
+# rescues, plane factors, landmarks, ATE mm
+CLI_IN_PROCESS = {"rescues": 19, "plane_factors": 74, "landmarks": 38,
+                  "ate_mm": 1.6518}
+
+
+def _cli(*argv):
+    """``graph_slam_tpu_torch.cli.main(argv)`` in this process (the function
+    ``python -m graph_slam_tpu_torch`` calls), the card synchronised at both
+    ends: (its standard output, seconds)."""
+    import io
+
+    import torch
+
+    from graph_slam_tpu_torch import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    _require(rc in (None, 0), f"{argv[0]} returned {rc}")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _captured(owner, name):
+    """Record what ``owner.name`` returns while the block runs (the same
+    calls, only observed)."""
+    seen = []
+    plain = getattr(owner, name)
+
+    def observed(*args, **kw):
+        out = plain(*args, **kw)
+        seen.append(out)
+        return out
+
+    setattr(owner, name, observed)
+    try:
+        yield seen
+    finally:
+        setattr(owner, name, plain)
+
+
+def _room_share(verts, voxel, tol_voxels=2):
+    """Share of mesh vertices within ``tol_voxels`` voxels of a face of the
+    box room (``frontend_reference_ate.ROOM``), and their median distance.
+    The mesh is in the SLAM session's frame, whose origin is the first
+    camera pose of the path."""
+    import numpy as np
+
+    import frontend_reference_ate as fra
+
+    R, t = fra.room_path(FRONTEND_HARRIS_FRAMES)
+    verts = verts @ R[0].T + t[0]
+    d = np.full(len(verts), np.inf)
+    for axis, (lo, hi) in enumerate(fra.ROOM):
+        d = np.minimum(d, np.minimum(np.abs(verts[:, axis] - lo),
+                                     np.abs(verts[:, axis] - hi)))
+    return float((d <= tol_voxels * voxel).mean()), float(np.median(d))
+
+
+def _cli_slam(tmp, out):
+    """(a): ``slam`` over a .gsf store of the Harris path's first frames,
+    against ``OnlineSlam`` fed the decoded frames in this process, against
+    the JAX package's run of them, and ``evaluate``. Returns (frames dir,
+    trajectory log, the decoded frames' statuses)."""
+    import numpy as np
+    import torch
+
+    import frontend_reference_ate as fra
+    from graph_slam_tpu_torch.config import RS435, SlamParams
+    from graph_slam_tpu_torch.core import so3
+    from graph_slam_tpu_torch.io import (FrameStore, read_trajectory,
+                                         write_trajectory)
+    from graph_slam_tpu_torch.pipelines import OnlineSlam
+
+    frames_dir = os.path.join(tmp, "frames")
+    a = out["a_slam"] = {"frames": CLI_FRAMES}
+    a["write_gsf_s"] = fra.write_gsf(RS435, CLI_FRAMES, frames_dir,
+                                     path=FRONTEND_HARRIS_FRAMES,
+                                     device="cuda")
+    a["gsf_mb"] = sum(os.path.getsize(os.path.join(frames_dir, f))
+                      for f in os.listdir(frames_dir)) / 1e6
+    slam_dir = os.path.join(tmp, "slam")
+    with _captured(OnlineSlam, "process_frame") as seen:
+        stdout, a["cli_s"] = _cli("slam", "--camera", "rs435",
+                                  "--global-loop-k", "2", "--frames",
+                                  frames_dir, "--out-dir", slam_dir)
+    statuses = "".join(fra.STATUS_LETTER[s] for s in seen)
+    a["stdout"] = stdout.splitlines()[:2]
+    traj_path = os.path.join(slam_dir, "trajectory.log")
+    traj = read_trajectory(traj_path)
+
+    store = FrameStore(frames_dir)
+    slam = OnlineSlam(cam=RS435, params=SlamParams(), global_loop_k=2)
+    ref = "".join(fra.STATUS_LETTER[slam.process_frame(*store(k), seq_id=k)]
+                  for k in range(CLI_FRAMES))
+    slam.optimize()
+    _, t, q, seqs = slam.trajectory()
+    same_shape = traj.t.shape == t.shape
+    a["statuses_equal_in_process"] = statuses == ref
+    a["max_abs_m_in_process"] = float(np.abs(traj.t - t).max()) \
+        if same_shape else float("inf")
+    _require(a["statuses_equal_in_process"] and same_shape
+             and bool((traj.seq == seqs).all()),
+             "slam: the CLI's statuses or keyframes differ from the "
+             "in-process run's")
+    _require(a["max_abs_m_in_process"] <= CLI_SLAM_HELD,
+             f"slam: CLI vs in-process {a['max_abs_m_in_process']:.3g} m")
+
+    gt_R, gt_t = fra.room_path(FRONTEND_HARRIS_FRAMES)
+    ate = fra.ate(traj.t, gt_t[traj.seq])
+    same = sum(x == y for x, y in zip(statuses, CLI_JAX["statuses"]))
+    a.update(keyframes=len(traj.seq), failed=statuses.count("X"), ate_m=ate,
+             jax_keyframes=CLI_JAX["keyframes"], jax_ate_m=CLI_JAX["ate_m"],
+             ate_diff_m=ate - CLI_JAX["ate_m"],
+             status_share_as_jax=same / len(CLI_JAX["statuses"]))
+    _require(len(statuses) == CLI_JAX["frames"]
+             and a["status_share_as_jax"] >= FRONTEND_STATUS_SHARE,
+             f"slam: statuses as JAX's on {a['status_share_as_jax']:.4f}")
+    _require(abs(len(traj.seq) - CLI_JAX["keyframes"])
+             <= FRONTEND_KEYFRAMES_REL * CLI_JAX["keyframes"],
+             f"slam: {len(traj.seq)} keyframes vs JAX's "
+             f"{CLI_JAX['keyframes']}")
+    _require(abs(ate - CLI_JAX["ate_m"]) <= FRONTEND_ATE_REL
+             * CLI_JAX["ate_m"], f"slam: ATE {ate * 1e3:.4f} mm vs "
+             f"JAX's {CLI_JAX['ate_m'] * 1e3:.4f} mm")
+
+    gt_path = os.path.join(tmp, "gt.log")
+    qg = so3.matrix_to_quat(torch.as_tensor(gt_R[traj.seq])).numpy()
+    write_trajectory(gt_path, np.arange(len(traj.seq)), gt_t[traj.seq], qg,
+                     traj.seq)
+    ev_json = os.path.join(tmp, "evaluate.json")
+    ev_out, a["evaluate_s"] = _cli("evaluate", "--est", traj_path, "--gt",
+                                   gt_path, "--json", ev_json)
+    a["evaluate_ate_m"] = json.load(open(ev_json))["ate"]["rmse"]
+    _require(f"ATE  rmse {ate:.6f} m" in ev_out
+             and abs(a["evaluate_ate_m"] - ate) <= 1e-9 * ate,
+             f"evaluate: ATE {a['evaluate_ate_m']} vs the smoke's {ate}")
+    return frames_dir, traj_path, statuses
+
+
+def _cli_tsdf(tmp, out, frames_dir, traj_path):
+    """(b): ``tsdf --n 512 --size 8`` over (a), the mesh against the room
+    and against the plain numpy extraction of the same volume, the
+    integration's time beside its bound, and card against CPU at 128^3."""
+    import numpy as np
+    import torch
+
+    import graph_slam_tpu_torch.mapping as mapping
+    from graph_slam_tpu_torch.config import RS435
+    from graph_slam_tpu_torch.io import FrameStore, Trajectory, read_trajectory
+    from graph_slam_tpu_torch.mapping import tsdf
+
+    b = out["b_tsdf"] = {"n": CLI_TSDF_N, "size_m": CLI_TSDF_SIZE}
+    mesh_path = os.path.join(tmp, "mesh.ply")
+    torch.cuda.reset_peak_memory_stats()
+    with _captured(mapping, "fuse_trajectory") as vols, \
+            _captured(mapping, "extract_mesh") as meshes:
+        stdout, b["cli_s"] = _cli(
+            "tsdf", "--traj", traj_path, "--frames", frames_dir, "--out",
+            mesh_path, "--n", str(CLI_TSDF_N), "--size", str(CLI_TSDF_SIZE),
+            "--camera", "rs435")
+    b["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    b["stdout"] = stdout.strip()
+    vol, (V, F) = vols[0], meshes[0]
+    traj = read_trajectory(traj_path)
+    b["integrations"] = len(traj.seq)
+    voxel = float(vol.voxel)
+    b["vertices"], b["faces"] = len(V), len(F)
+    b["room_share"], b["median_face_distance_m"] = _room_share(V, voxel)
+    _require(len(F) > 0, "tsdf: empty mesh")
+    _require(b["room_share"] >= CLI_ROOM_SHARE,
+             f"tsdf: {b['room_share']:.4f} of the vertices within 2 voxels "
+             "of the room")
+    _require(vol.tsdf.device.type == "cuda", "tsdf: the grid is not on the "
+             "card")
+
+    # the device-side extraction against the plain numpy one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    V2, F2 = tsdf.extract_mesh(vol)
+    b["extract_ms"] = (time.perf_counter() - t0) * 1e3
+    host = [x.cpu().numpy() for x in vol]
+    t0 = time.perf_counter()
+    Vn, Fn = tsdf.extract_mesh_numpy(*host)
+    b["extract_numpy_ms"] = (time.perf_counter() - t0) * 1e3
+    b["extract_bit_equal"] = bool(np.array_equal(V, Vn)
+                                  and np.array_equal(F, Fn)
+                                  and np.array_equal(V2, Vn))
+    _require(b["extract_bit_equal"], "tsdf: the device extraction differs "
+             "from the numpy one")
+    del host
+
+    # ms an integration, warm, on the 512^3 grid: CUDA events around 10
+    store = FrameStore(frames_dir)
+    depth = torch.as_tensor(store(0)[1], device="cuda")
+    R = torch.eye(3, dtype=torch.float64, device="cuda")
+    t = torch.as_tensor(traj.t[0], device="cuda")
+    tsdf.integrate(vol, RS435, depth, R, t)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(10):
+        tsdf.integrate(vol, RS435, depth, R, t)
+    ev[1].record()
+    ev[1].synchronize()
+    b["integrate_ms"] = ev[0].elapsed_time(ev[1]) / 10
+    b["integrate_bound_ms"] = 4 * CLI_TSDF_N ** 3 * 4 / HBM_BYTES_PER_S * 1e3
+    b["integrate_bound_by"] = "bytes"
+    del vol
+
+    # card against CPU on the first frames at 128^3
+    head = Trajectory(*(x[:CLI_HELD_FRAMES] for x in
+                        (traj.ids, traj.t, traj.quat, traj.seq)))
+    origin = traj.t.mean(0) - CLI_TSDF_SIZE / 2.0
+    card = mapping.fuse_trajectory(head, store, RS435, origin, CLI_TSDF_SIZE,
+                                   n=CLI_HELD_N)
+    t0 = time.perf_counter()
+    cpu = mapping.fuse_trajectory(head, store, RS435, origin, CLI_TSDF_SIZE,
+                                  n=CLI_HELD_N, device="cpu")
+    b["cpu_fuse_s"] = time.perf_counter() - t0
+    wc, wp = card.weight.cpu(), cpu.weight
+    both = (wc > 0) & (wc == wp)
+    b["held"] = {"n": CLI_HELD_N, "frames": CLI_HELD_FRAMES,
+                 "flipped_voxels": int((wc != wp).sum()),
+                 "updated_voxels": int((wp > 0).sum()),
+                 "tsdf_max_abs": float((card.tsdf.cpu() - cpu.tsdf)[both]
+                                       .abs().max())}
+    _require(b["held"]["flipped_voxels"] <= CLI_FLIP_SHARE * wp.numel(),
+             f"tsdf: {b['held']['flipped_voxels']} voxels flipped card vs "
+             "CPU")
+    _require(b["held"]["tsdf_max_abs"] <= CLI_TSDF_HELD,
+             f"tsdf: card vs CPU {b['held']['tsdf_max_abs']:.3g}")
+
+
+def _cli_maps(tmp, out, frames_dir, traj_path):
+    """(c): ``map`` (defaults, ``--voxel 0.02``), ``filter`` and ``mesh`` of
+    its PCD, ``video --every 50`` over (a)'s first 100 poses."""
+    import numpy as np
+
+    from graph_slam_tpu_torch.config import RS435
+    from graph_slam_tpu_torch.io import (FrameStore, read_trajectory,
+                                         write_trajectory)
+    from graph_slam_tpu_torch.mapping import (accumulate_cloud, read_pcd,
+                                              voxel_filter)
+
+    c = out["c_maps"] = {}
+    pcd = os.path.join(tmp, "map.pcd")
+    _, c["map_s"] = _cli("map", "--traj", traj_path, "--frames", frames_dir,
+                         "--out", pcd, "--camera", "rs435", "--voxel", "0.02")
+    pts, cols = read_pcd(pcd)
+    traj = read_trajectory(traj_path)
+    want, want_c = voxel_filter(*accumulate_cloud(
+        traj, FrameStore(frames_dir), RS435, stride=7, skip=2), voxel=0.02)
+    c["points"] = len(pts)
+    _require(len(pts) > 0 and np.array_equal(pts.astype(np.float32),
+                                             want.astype(np.float32))
+             and np.array_equal(cols, want_c),
+             "map: the PCD read back differs from the cloud written")
+    filt = os.path.join(tmp, "filtered.pcd")
+    _, c["filter_s"] = _cli("filter", "--pcd", pcd, "--out", filt)
+    c["filtered_points"] = len(read_pcd(filt)[0])
+    mesh_out, c["mesh_s"] = _cli("mesh", "--pcd", pcd, "--out",
+                                 os.path.join(tmp, "map_mesh.ply"))
+    c["mesh_faces"] = int(mesh_out.split(" faces")[0].split()[-1])
+    _require(c["filtered_points"] > 0 and c["mesh_faces"] > 0,
+             "filter or mesh: nothing left")
+    head = os.path.join(tmp, "traj100.log")
+    write_trajectory(head, traj.ids[:100], traj.t[:100], traj.quat[:100],
+                     traj.seq[:100])
+    snaps = os.path.join(tmp, "snaps")
+    _, c["video_s"] = _cli("video", "--traj", head, "--frames", frames_dir,
+                           "--out-dir", snaps, "--every", "50", "--camera",
+                           "rs435")
+    c["snapshots"] = sorted(f for f in os.listdir(snaps)
+                            if f.endswith(".ply"))
+    _require(len(c["snapshots"]) == len(range(0, min(100, len(traj.seq)),
+                                              50)) + 1,
+             f"video: {len(c['snapshots'])} snapshots")
+
+
+def _cli_serve(out, frames_dir, statuses):
+    """(d): ``serve --port 0`` in a thread of this process on the card, its
+    (a) frames streamed over loopback as .gsf bytes, against (a)'s statuses
+    and an in-process session with the service's settings."""
+    import io
+    import threading
+
+    import numpy as np
+
+    import frontend_reference_ate as fra
+    from graph_slam_tpu_torch import cli
+    from graph_slam_tpu_torch.config import RS435, SlamParams
+    from graph_slam_tpu_torch.io import FrameStore
+    from graph_slam_tpu_torch.pipelines import OnlineSlam
+    from graph_slam_tpu_torch.serving import SlamClient, recv_msg, send_msg
+
+    d = out["d_serve"] = {"frames": CLI_FRAMES}
+    store = FrameStore(frames_dir)
+    blobs = [open(store.path(k), "rb").read() for k in range(CLI_FRAMES)]
+    buf = io.StringIO()
+    errors = []
+
+    def serve():
+        try:
+            cli.main(["serve", "--camera", "rs435", "--port", "0"])
+        except BaseException as e:        # reported by the main thread
+            errors.append(e)
+
+    with contextlib.redirect_stdout(buf):
+        th = threading.Thread(target=serve, daemon=True)
+        th.start()
+        deadline = time.perf_counter() + 120
+        while "SLAM service on" not in buf.getvalue():
+            _require(time.perf_counter() < deadline and not errors,
+                     f"serve did not come up: {errors}")
+            time.sleep(0.05)
+        port = int(buf.getvalue().split("SLAM service on ")[1]
+                   .split(" ")[0].rsplit(":", 1)[1])
+        client = SlamClient("127.0.0.1", port, timeout=600.0)
+        t0 = time.perf_counter()
+        replies = []
+        for k, blob in enumerate(blobs):
+            send_msg(client.sock, {"type": "frame", "seq": k}, blob)
+            replies.append(recv_msg(client.sock)[0])
+        d["frames_per_s"] = CLI_FRAMES / (time.perf_counter() - t0)
+        summary = client.finish()
+        th.join(timeout=120)
+    _require(not th.is_alive() and not errors, f"serve: {errors}")
+    got = "".join(fra.STATUS_LETTER.get(r.get("status"), "?")
+                  for r in replies)
+    _require(all(r["type"] == "pose" and r["seq"] == k
+                 for k, r in enumerate(replies)),
+             "serve: a reply is missing or not a pose")
+    slam = OnlineSlam(cam=RS435, params=SlamParams(optimize_step=10),
+                      features="harris")
+    ref = "".join(fra.STATUS_LETTER[slam.process_frame(*store(k), seq_id=k)]
+                  for k in range(CLI_FRAMES))
+    slam.optimize()
+    _, t, _, seqs = slam.trajectory()
+    st = np.asarray(summary["t"])
+    d.update(keyframes=summary["keyframes"], statuses_equal_slam=got ==
+             statuses, statuses_equal_in_process=got == ref,
+             max_abs_m_in_process=float(np.abs(st - t).max())
+             if st.shape == t.shape else float("inf"))
+    _require(got == statuses == ref, "serve: statuses differ from (a)'s or "
+             "the in-process session's")
+    _require(list(summary["seq"]) == list(seqs)
+             and d["max_abs_m_in_process"] <= CLI_SLAM_HELD,
+             f"serve: trajectory {d['max_abs_m_in_process']:.3g} m from the "
+             "in-process session")
+
+
+def _cli_vio(tmp, out):
+    """(e): ``vio --frames --plane-mode rescue`` on the rescue phase's
+    scenario written to files, held to the rescue phase's gates; returns
+    its region-grow launches."""
+    import numpy as np
+
+    import graph_slam_tpu_torch.pipelines.vio as vio_module
+    from graph_slam_tpu_torch.datasets import make_vio_plane_scenario
+    from graph_slam_tpu_torch.io import FrameStore, write_vro_log
+    from graph_slam_tpu_torch.planes.region_grow import region_grow
+
+    e = out["e_vio"] = {"frames": CLI_VIO_FRAMES,
+                        "in_process": CLI_IN_PROCESS}
+    t0 = time.perf_counter()
+    scenario = make_vio_plane_scenario(n_frames=CLI_VIO_FRAMES,
+                                       fail_every=100, render="lazy",
+                                       return_gt=True)
+    log, times, stream, _, frames, _, _ = scenario
+    vro = os.path.join(tmp, "vro.log")
+    write_vro_log(vro, log)
+    imu = os.path.join(tmp, "imu_vn100.log")
+    np.savetxt(imu, np.column_stack([np.asarray(stream.t),
+                                     np.asarray(stream.acc),
+                                     np.asarray(stream.gyr),
+                                     np.zeros((len(stream.t), 3))]),
+               fmt="%.17g")
+    times_path = os.path.join(tmp, "times.log")
+    with open(times_path, "w") as f:
+        f.writelines(f"{s} {t!r}\n" for s, t in sorted(times.items()))
+    store = FrameStore(os.path.join(tmp, "sr4000"))
+    for k in range(CLI_VIO_FRAMES):
+        store.save(k, *frames(k))
+    cfg = os.path.join(tmp, "online_flagship.json")
+    with open(cfg, "w") as f:
+        json.dump({"vio": {k: v for k, v in ONLINE_CFG.items()
+                           if k != "plane_mode"} | {"final_batch": False}},
+                  f)
+    e["write_s"] = time.perf_counter() - t0
+    before = region_grow.launches
+    with _captured(vio_module, "run_vio") as runs:
+        stdout, e["cli_s"] = _cli(
+            "vio", "--vro", vro, "--imu", imu, "--times", times_path,
+            "--frames", store.dir, "--plane-mode", "rescue", "--camera",
+            "sr4000", "--extrinsic", "identity", "--config", cfg,
+            "--out-dir", os.path.join(tmp, "vio"))
+    launches = region_grow.launches - before
+    e["stdout"] = stdout.strip().splitlines()
+    chk = _rescue_checks(runs[0], scenario, "cli vio")
+    e.update({k: chk[k] for k in ("rescue_steps", "predictions",
+                                  "n_plane_factors", "landmarks", "ate_mm",
+                                  "ate_over_path")},
+             launches=launches, frames_per_s=CLI_VIO_FRAMES / e["cli_s"])
+    _require(chk["ate_over_path"] <= RESCUE_ATE_PATH,
+             f"vio: ATE {chk['ate_over_path']:.4%} of the path")
+    _require(launches == chk["predictions"] > 0,
+             f"vio: region_grow launched {launches} times for "
+             f"{chk['predictions']} predictions")
+    return launches
+
+
+def _cli_module(tmp, out):
+    """(f): one ``python -m graph_slam_tpu_torch posegraph`` subprocess on
+    the card against the golden chi2; ``presets``; the native runtime."""
+    import sys as _sys
+
+    from graph_slam_tpu_torch import native
+
+    f = out["f_module"] = {}
+    pins = json.load(open(os.path.join(GOLDEN, "chi2.json")))
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_sys.executable, "-m", "graph_slam_tpu_torch", "posegraph", "--vro",
+         os.path.join(GOLDEN, "posegraph_vro.log"), "--out-dir",
+         os.path.join(tmp, "posegraph")], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    f["posegraph_s"] = time.perf_counter() - t0
+    _require(proc.returncode == 0, f"python -m graph_slam_tpu_torch "
+             f"posegraph: {proc.stderr[-800:]}")
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("chi2:"))
+    f["posegraph_stdout"] = line
+    f["chi2"] = float(line.split("-> ")[1].split(" ")[0])
+    f["chi2_pin"] = pins["vro_error"]
+    _require(abs(f["chi2"] - pins["vro_error"]) <= 1e-6,
+             f"posegraph: chi2 {f['chi2']} vs the pin {pins['vro_error']}")
+    presets, _ = _cli("presets")
+    f["presets"] = len(presets.splitlines())
+    f["native_available"] = native.available()
+    _require(f["presets"] == 26 and f["native_available"],
+             f"{f['presets']} presets, native {f['native_available']}")
+
+
+def phase_cli(smi):
+    """The command line on the card: ``graph_slam_tpu_torch.cli.main`` in
+    this process (and one ``python -m`` subprocess) from a 640 x 480 .gsf
+    store to a trajectory, a point-cloud map, a 512^3 TSDF mesh, the SLAM
+    service, the VIO rescue and the golden pose graph. Returns the
+    region-grow launches of its ``vio`` run."""
+    out = {"phase": "cli", "card": smi}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        frames_dir, traj_path, statuses = _cli_slam(tmp, out)
+        _cli_tsdf(tmp, out, frames_dir, traj_path)
+        _cli_maps(tmp, out, frames_dir, traj_path)
+        _cli_serve(out, frames_dir, statuses)
+        launches = _cli_vio(tmp, out)
+        _cli_module(tmp, out)
+    out["seconds"] = time.perf_counter() - t0
+    _emit(out)
+    return launches
+
+
 def phase_profiles(vio_job, rescue_job, online_job, ba_job, frontend_job):
     """The VIO, rescue and online prefix replays and one GN iteration of
     ``ba_sqrt_100k`` again under the profiler, after every timed run of
@@ -2971,6 +3484,11 @@ def main(argv=None):
     frontend_launches = region_grow.launches
     _require(frontend_launches == 0, "the frontend phase launched "
              f"region_grow {frontend_launches} times")
+    region_grow.launches = 0
+    cli_launches = phase_cli(smi)
+    _require(region_grow.launches == cli_launches > 0,
+             f"the cli phase launched region_grow {region_grow.launches} "
+             f"times, its vio run {cli_launches}")
     profiled = phase_profiles(vio_job, rescue_job, online_job, ba_job,
                               frontend_job)
     rescue_launches += profiled["rescue"]
@@ -2982,11 +3500,13 @@ def main(argv=None):
         "name": "region_grow", "route": "cuda",
         "source": "graph_slam_tpu_torch/csrc/region_grow.cu",
         "replaces": "graph_slam_tpu/planes/pallas_grow.py:78",
-        "launches": launches + rescue_launches + online_launches,
+        "launches": launches + rescue_launches + online_launches
+        + cli_launches,
         "launches_by_path": {"posegraph": 0, "ba": ba_launches,
                              "planes": launches, "rescue": rescue_launches,
                              "online": online_launches,
-                             "frontend": frontend_launches},
+                             "frontend": frontend_launches,
+                             "cli": cli_launches},
         "max_abs_err": max(timing["mismatches"],
                            rescue_timing["mismatches"]),
         "shape": timing["shape"], "ms": timing["device_us"] / 1e3,

@@ -3,7 +3,7 @@
 over it, for ``chip_smoke.py``'s ``frontend`` phase to hold the port to.
 
     JAX_PLATFORMS=cpu python3 frontend_reference_ate.py \
-        [--frames 1000] [--features harris|sift]
+        [--frames 1000] [--features harris|sift] [--path N] [--gsf DIR]
 
 The room is a 6 x 3 x 6 m box whose six faces carry the 3 cm random grid
 of ``tests/test_pipelines2.py:render_wall_frame`` (one grid a face),
@@ -25,9 +25,14 @@ one final ``optimize()``, and prints one JSON line: the status of every
 frame (one letter each: ``F`` first, ``K`` keyframe, ``S`` small motion,
 ``X`` failed), the keyframe count, the lookback and global loop edges, and
 the ATE RMSE of the keyframes against the path (Umeyama-aligned,
-``chip_smoke._ate``'s formula). Importing this module imports numpy and
-torch only: ``chip_smoke.py`` renders its frames with it on a machine
-without JAX.
+``chip_smoke._ate``'s formula). ``--path N`` takes the first ``--frames``
+frames of the closed path of N frames (default: ``--frames``). ``--gsf
+DIR`` feeds the frames decoded from the ``.gsf`` store DIR instead of the
+rendered ones (u16 millimetre depth and integer intensity, what
+``python -m graph_slam_tpu_torch slam --frames DIR`` reads), writing them
+there first when DIR holds none (``write_gsf``). Importing this module
+imports numpy and torch only: ``chip_smoke.py`` renders its frames with it
+on a machine without JAX.
 """
 
 import argparse
@@ -148,6 +153,21 @@ def path_frames(K, n, device="cpu"):
         yield render_room_frame(K, R[k], t[k], tex, rays)
 
 
+def write_gsf(K, n, directory, path=None, device="cpu"):
+    """The first ``n`` frames of ``room_path(path or n)``, rendered on
+    ``device``, written as the ``.gsf`` store ``directory`` (frame k at
+    ``{k:07d}.gsf``). Returns the seconds it took."""
+    from graph_slam_tpu_torch.io import FrameStore
+
+    t0 = time.perf_counter()
+    store = FrameStore(directory)
+    for k, (img, depth) in enumerate(path_frames(K, path or n, device)):
+        if k == n:
+            break
+        store.save(k, img.cpu().numpy(), depth.cpu().numpy())
+    return time.perf_counter() - t0
+
+
 def ate(est_t, gt_t):
     """``chip_smoke._ate``'s translational ATE RMSE after a rigid Umeyama
     alignment."""
@@ -175,7 +195,12 @@ def main():
     ap.add_argument("--frames", type=int, default=1000)
     ap.add_argument("--features", choices=("harris", "sift"),
                     default="harris")
+    ap.add_argument("--path", type=int, default=None,
+                    help="frames of the closed path (default: --frames)")
+    ap.add_argument("--gsf", help=".gsf store to read the frames from "
+                                  "(written first when it holds none)")
     args = ap.parse_args()
+    n_path = args.path or args.frames
 
     import jax
 
@@ -184,24 +209,38 @@ def main():
     from graph_slam_tpu.config import RS435, SlamParams
     from graph_slam_tpu.pipelines import OnlineSlam
 
+    if args.gsf:
+        import glob
+        import os
+
+        from graph_slam_tpu.io import FrameStore
+
+        if not glob.glob(os.path.join(args.gsf, "*.gsf")):
+            write_gsf(RS435, args.frames, args.gsf, n_path)
+        store = FrameStore(args.gsf)
+        frames = (store(k) for k in range(args.frames))
+    else:
+        frames = ((img.numpy(), depth.numpy()) for img, depth in
+                  path_frames(RS435, n_path))
     slam = OnlineSlam(cam=RS435, params=SlamParams(),
                       features=args.features, global_loop_k=2)
     statuses = []
     t0 = time.perf_counter()
-    for k, (img, depth) in enumerate(path_frames(RS435, args.frames)):
+    for k, (img, depth) in zip(range(args.frames), frames):
         statuses.append(STATUS_LETTER[slam.process_frame(
-            img.numpy(), depth.numpy(), seq_id=k)])
+            img, depth, seq_id=k)])
     slam.optimize()
     wall = time.perf_counter() - t0
     _, t, _, seqs = slam.trajectory()
-    _, gt_t = room_path(args.frames)
+    _, gt_t = room_path(n_path)
     bt = slam.og.graph.between
     act = np.asarray(bt.active)
     lookback, global_ = loop_edges(np.asarray(bt.i)[act],
                                    np.asarray(bt.j)[act],
                                    slam.params.lookback_nodes)
     print(json.dumps({
-        "frames": args.frames, "features": args.features,
+        "frames": args.frames, "path": n_path, "gsf": bool(args.gsf),
+        "features": args.features,
         "keyframes": slam.num_keyframes, "lookback_edges": lookback,
         "global_edges": global_, "ate_m": ate(np.asarray(t, np.float64),
                                               gt_t[np.asarray(seqs)]),

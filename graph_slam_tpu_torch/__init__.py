@@ -32,11 +32,19 @@ Ported so far:
   descriptor matching, batched RANSAC and PnP, the VRO frontend and place
   recognition (``vision``), ``pipelines.OnlineSlam``, ``plane_check``,
   ``features_from_store``, ``imu.euler``, ``tools`` (the VRO-log tools),
-  ``io.frames`` and ``utils.metrics``.
+  ``io.frames`` and ``utils.metrics``;
+- the command line (``cli``, ``python -m graph_slam_tpu_torch``, all 26
+  subcommands, ``--device`` choosing where they run), mapping (point
+  clouds and their filters, grid meshes, TSDF fusion on the device with
+  marching tetrahedra, map-video snapshots, headless viewers, the
+  PointCloud2-layout publisher: ``mapping``), the SLAM service
+  (``serving``), the launch-file presets (``config``, ``configs/``), the
+  RGB-D readers (``io.rgbd_png``, ``io.sr4000``, ``io.tum``),
+  ``utils.colors`` and the native IO runtime (``native``, C++ over
+  ctypes, with numpy fallbacks).
 
-Not ported yet: the rest of the numpy-only modules (RGB-D readers,
-colors, meshes, publishing, the native loader), mapping, serving and the
-CLI (ROADMAP items F1 and F3), and multi-device sharding (item G).
+Not ported yet: multi-device sharding (ROADMAP item G; ``g2o --sharded
+N`` and ``ba-imu --sharded N`` with N > 0 exit saying so).
 
 Importing the package changes no process-wide torch setting: tensors
 default to whatever dtype the caller has set (entry points take

@@ -1,20 +1,25 @@
-"""Configuration dataclasses — a copy of ``graph_slam_tpu/config.py:26-95``.
+"""Configuration dataclasses and launch-file presets — a copy of
+``graph_slam_tpu/config.py``.
 
 Copied rather than imported: importing ``graph_slam_tpu.config`` runs
 ``graph_slam_tpu/__init__.py``, which imports jax. ``SlamParams`` (every
-``robust`` choice, GNC included, is ported), ``CameraIntrinsics`` and the
-camera presets are here. The launch-file presets and their JSON loading
-(``preset_names``, ``load_params``...) come with the CLI, their only
-caller (ROADMAP queue 1, item F3).
+``robust`` choice, GNC included, is ported), ``CameraIntrinsics``, the
+camera presets and the preset loaders are here. The presets are the
+port's own copy of the 26 JSON files, ``graph_slam_tpu_torch/configs/``:
+the same contents as the JAX package's but for ``source``, which names
+the reference's launch file by its path in the reference repository.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional
 
 __all__ = ["SlamParams", "CameraIntrinsics", "SR4000", "RS435", "RS200",
-           "TUM_FR1", "TUM_FR2", "TUM_FR3"]
+           "TUM_FR1", "TUM_FR2", "TUM_FR3", "load_params", "save_params",
+           "load_config_dict", "preset_names", "preset_path"]
 
 
 @dataclasses.dataclass
@@ -79,3 +84,68 @@ TUM_FR2 = CameraIntrinsics(fx=520.9, fy=521.0, cx=325.1, cy=249.7,
                            width=640, height=480, depth_scale=0.0002)
 TUM_FR3 = CameraIntrinsics(fx=535.4, fy=539.2, cx=320.1, cy=247.6,
                            width=640, height=480, depth_scale=0.0002)
+
+
+# Launch-file presets (the reference's 25 launch/**/*.launch files): JSON
+# files shipped under configs/, addressable by bare name everywhere a
+# --config path is accepted. Reserved top-level sections that are NOT
+# SlamParams fields:
+#   description / source  — provenance (the launch file they mirror)
+#   camera                — intrinsics preset name ("sr4000" | "rs435")
+#   extrinsic             — camera-IMU extrinsic preset
+#   backend               — "gtsam" | "g2o" fake-odo weighting
+#   imu_type              — "vn100" | "mems"
+#   vio                   — pipelines.vio.VioConfig field overrides
+#   tool                  — the CLI subcommand this preset parameterizes
+#   args                  — CLI-flag defaults for that subcommand (the
+#                           launch file's <param> tags; cli.main applies
+#                           them as parser defaults, flags still win)
+_RESERVED_KEYS = ("description", "source", "camera", "extrinsic", "backend",
+                  "imu_type", "vio", "tool", "args")
+_CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs")
+
+
+def preset_names() -> list:
+    """Names of the shipped launch-file-equivalent presets."""
+    return sorted(os.path.splitext(f)[0] for f in os.listdir(_CONFIG_DIR)
+                  if f.endswith(".json"))
+
+
+def preset_path(name: str) -> str:
+    return os.path.join(_CONFIG_DIR, name + ".json")
+
+
+def load_config_dict(path_or_name: str) -> dict:
+    """Full config dict from a JSON file path or a shipped preset name."""
+    path = path_or_name
+    if not os.path.exists(path):
+        cand = preset_path(path_or_name)
+        if os.path.exists(cand):
+            path = cand
+        else:
+            raise FileNotFoundError(
+                f"no config file {path_or_name!r} and no preset named "
+                f"{path_or_name!r} (available: {', '.join(preset_names())})")
+    with open(path) as f:
+        return json.load(f)
+
+
+def load_params(path_or_name: str) -> SlamParams:
+    """Launch-file replacement: JSON dict of overrides over defaults.
+
+    Accepts a file path or a shipped preset name (``preset_names()``).
+    Reserved non-SlamParams sections (camera/vio/...) are ignored here —
+    the CLI applies them at the driver level.
+    """
+    data = load_config_dict(path_or_name)
+    fields = {f.name for f in dataclasses.fields(SlamParams)}
+    unknown = set(data) - fields - set(_RESERVED_KEYS)
+    if unknown:
+        raise ValueError(f"unknown SlamParams keys: {sorted(unknown)}")
+    return SlamParams(**{k: v for k, v in data.items() if k in fields})
+
+
+def save_params(path: str, params: SlamParams) -> None:
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(params), f, indent=2)

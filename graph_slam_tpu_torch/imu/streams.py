@@ -9,8 +9,8 @@ copy of ``graph_slam_tpu/imu/streams.py`` (numpy).
 - static initialization: gravity direction from the averaged
   accelerometer and the prior bias from a static window.
 
-Tables load with ``numpy.loadtxt``; the JAX package's native parser is not
-ported.
+Tables load through the native runtime (``native.parse_table``) when it is
+built, with ``numpy.loadtxt`` as the fallback.
 """
 
 from __future__ import annotations
@@ -55,15 +55,21 @@ class ImuStream:
         return self.acc[lo:hi], self.gyr[lo:hi]
 
 
-def _load_table(path: str) -> np.ndarray:
-    data = np.loadtxt(path)
-    if data.ndim == 1:
-        data = data[None, :]
+def _load_table(path: str, n_cols: int) -> np.ndarray:
+    """Numeric-table load through the native runtime (readImuData role,
+    imu_vn100.cpp:78-105), numpy fallback when it is not built."""
+    from .. import native
+
+    data = native.parse_table(path, n_cols)
+    if data is None:
+        data = np.loadtxt(path)
+        if data.ndim == 1:
+            data = data[None, :]
     return data
 
 
 def read_vn100_log(path: str) -> ImuStream:
-    data = _load_table(path)
+    data = _load_table(path, 10)
     t = data[:, 0]
     acc = data[:, 1:4]
     gyr = data[:, 4:7]
@@ -73,7 +79,7 @@ def read_vn100_log(path: str) -> ImuStream:
 
 def read_mems_log(path: str, dt: float = 0.01) -> ImuStream:
     """Raw integer MEMS log: columns ``frame_id gx gy gz ax ay az`` (LSB)."""
-    data = _load_table(path)
+    data = _load_table(path, 7)
     frame_id = data[:, 0]
     gyr = mems_gyro_lsb_to_rad(data[:, 1:4])
     acc = mems_accel_lsb_to_ms2(data[:, 4:7])

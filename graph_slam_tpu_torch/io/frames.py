@@ -5,9 +5,9 @@ imported, because importing any ``graph_slam_tpu`` module imports jax).
 Plays the role of the external camera readers the reference links against
 (``SR_reader_cv.h`` for SR4000 ``.bdat`` files, ``rs_r200_wrapper.h`` for
 RealSense — SURVEY.md §0): a simple documented binary format plus a batch
-loader. ``load_batch`` reads file by file with numpy (the reference's
-fallback path, ``frames.py:108-115``); the reference's threaded native
-loader (``native/``) is not ported yet.
+loader, ``load_batch``, which reads through the native runtime's threaded
+loader (``native.read_frames_u16``) when it is built and file by file with
+numpy otherwise.
 
 Format (``.gsf``, graph-slam frame): little-endian, a 16-byte header
 ``GSF1`` + u32 width + u32 height + u32 depth_scale_um, followed by
@@ -90,11 +90,22 @@ class FrameStore:
         save_frame(self.path(seq), intensity, depth_m, depth_scale_um)
 
     def load_batch(self, seqs, w: int, h: int, depth_scale_um: int = 1000):
-        """Batch-load frames, one file at a time.
+        """Batch-load frames with the native pthread loader when available.
 
         Returns (intensity (N,h,w) f32, depth_m (N,h,w) f32).
         """
+        from .. import native
+
         paths = [self.path(s) for s in seqs]
+        words = 8 + 2 * h * w  # 16-byte header = 8 u16 words + payload
+        # read each file as one flat u16 row; slice off the header
+        raw = native.read_frames_u16(paths, words, 1, n_threads=8)
+        if raw is not None:
+            raw = raw.reshape(len(seqs), words)
+            inten = raw[:, 8:8 + h * w].reshape(-1, h, w).astype(np.float32)
+            depth_raw = raw[:, 8 + h * w:].reshape(-1, h, w)
+            depth = depth_raw.astype(np.float32) * (depth_scale_um * 1e-6)
+            return inten, depth
         intens = np.empty((len(seqs), h, w), np.float32)
         depths = np.empty((len(seqs), h, w), np.float32)
         for k, p in enumerate(paths):

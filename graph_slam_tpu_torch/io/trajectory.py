@@ -2,10 +2,10 @@
 ``graph_slam_tpu/io/trajectory.py`` (numpy only).
 
 Copied rather than imported: importing ``graph_slam_tpu.io`` runs
-``graph_slam_tpu/__init__.py``, which imports jax. The reference's native
-table parser and PLY row writer (``graph_slam_tpu/native``) are not
-ported; ``read_trajectory`` and ``write_ply_points`` here are the
-reference's pure-Python fallbacks, which give the same results.
+``graph_slam_tpu/__init__.py``, which imports jax. ``read_trajectory`` and
+``write_ply_points`` go through the native runtime (``native.parse_table``,
+``native.write_cloud_ascii``) when it is built, with the reference's
+pure-Python loops as the fallback.
 
 - trajectory log lines: ``id x y z qx qy qz qw sid`` — written by
   ``CGraphGT::writeTrajectory`` and re-read by every mapping tool. The
@@ -64,6 +64,13 @@ def write_trajectory(path: str, ids, t, quat_wxyz, seq) -> None:
 def read_trajectory(path: str) -> Trajectory:
     """``id x y z qx qy qz qw sid`` lines (readTraj); lines with fewer
     than nine numbers are skipped."""
+    from .. import native
+
+    data = native.parse_table(path, 9)
+    if data is not None:
+        q = data[:, 4:8]
+        return Trajectory(data[:, 0].astype(int), data[:, 1:4],
+                          q[:, [3, 0, 1, 2]], data[:, 8].astype(int))
     ids, ts, qs, seqs = [], [], [], []
     with open(path) as f:
         for line in f:
@@ -96,6 +103,11 @@ def write_ply_points(path: str, points, colors) -> None:
     colors = np.asarray(colors)
     if colors.ndim == 1:
         colors = np.broadcast_to(colors, (len(points), 3))
+    from .. import native
+
+    if native.write_cloud_ascii(path, _ply_header(len(points)), points,
+                                colors, mode=2):
+        return
     with open(path, "w") as f:
         f.write(_ply_header(len(points)))
         for p, c in zip(points, colors):

@@ -10,8 +10,9 @@ Format (one edge per line, whitespace separated):
   row-major;
 - a *failed* match is encoded with ``info(0,0) == 10000``.
 
-The reader here is the pure-Python one; the JAX package's native parser
-is not ported. Floats round-trip with ``repr`` precision.
+``read_vro_log`` parses with the native runtime (``native.parse_vro_log``,
+strtod) when it is built, else with numpy, as the reference does. Floats
+round-trip with ``repr`` precision.
 """
 
 from __future__ import annotations
@@ -52,14 +53,20 @@ class VROLog:
 
 
 def read_vro_log(path: str) -> VROLog:
-    with open(path) as f:
-        tokens = f.read().split()
-    # 2 ids + 6 pose + 21 info = 29 tokens per record
-    nrec = len(tokens) // 29
+    from .. import native
+
+    rows = native.parse_vro_log(path)
+    if rows is None:
+        with open(path) as f:
+            tokens = f.read().split()
+        # 2 ids + 6 pose + 21 info = 29 tokens per record
+        nrec = len(tokens) // 29
+        rows = np.asarray(tokens[:29 * nrec],
+                          dtype=np.float64).reshape(nrec, 29)
+    nrec = len(rows)
     if not nrec:
         return VROLog(np.zeros(0, int), np.zeros(0, int),
                       np.zeros((0, 6)), np.zeros((0, 6, 6)))
-    rows = np.asarray(tokens[:29 * nrec], dtype=np.float64).reshape(nrec, 29)
     info = np.zeros((nrec, 6, 6))
     info[:, _TRIU[0], _TRIU[1]] = rows[:, 8:29]
     info = info + np.swapaxes(info, 1, 2)

@@ -21,7 +21,9 @@ from graph_slam_tpu_torch.datasets import (make_ba_graph, make_sphere_graph,
 from graph_slam_tpu_torch.device import resolve
 from graph_slam_tpu_torch.graph import (GraphBuilder, factors, online,
                                         variables)
-from graph_slam_tpu_torch.io import VROLog
+from graph_slam_tpu_torch.io import Trajectory, VROLog
+from graph_slam_tpu_torch.mapping import (accumulate_cloud, fuse_trajectory,
+                                          make_volume)
 from graph_slam_tpu_torch.noise import models as noise
 from graph_slam_tpu_torch.pipelines import (BaImuConfig, VioConfig,
                                             build_graph_from_g2o,
@@ -176,6 +178,15 @@ def _feature_frame(**kw):
     return convert.feature_frame_from_numpy(convert.to_numpy(f), **kw).uv
 
 
+def _fuse(**kw):
+    """Two frames fused into a 16^3 grid."""
+    ids = np.arange(2)
+    traj = Trajectory(ids, np.zeros((2, 3)), np.tile([1.0, 0, 0, 0], (2, 1)),
+                      ids)
+    return fuse_trajectory(traj, lambda s: _frame(), SR4000, (-1, -1, 0),
+                           4.0, n=16, **kw).tsdf
+
+
 def _euler(**kw):
     from graph_slam_tpu_torch.imu.euler import integrate_euler
 
@@ -192,6 +203,8 @@ ENTRY_POINTS = {
     "OnlineSlam": _online_slam,
     "convert.feature_frame_from_numpy": _feature_frame,
     "integrate_euler": _euler,
+    "fuse_trajectory": _fuse,
+    "make_volume": lambda **kw: make_volume((0, 0, 0), 1.0, 4, **kw).weight,
     "make_ba_graph": lambda **kw: make_ba_graph(
         4, 30, bucket=8, **kw)[1].point,
     "Cal3DS2.make": lambda **kw: Cal3DS2.make(1.0, 1.0, 0.0, 0.0, **kw).fx,
@@ -308,9 +321,51 @@ def _host_entry_points():
     }
 
 
-@pytest.mark.parametrize("name", sorted(_host_entry_points()))
+def _accumulate(**kw):
+    ids = np.arange(2)
+    traj = Trajectory(ids, np.zeros((2, 3)), np.tile([1.0, 0, 0, 0], (2, 1)),
+                      ids)
+    return accumulate_cloud(traj, lambda s: _frame(), SR4000, **kw)
+
+
+def _serve(**kw):
+    """``serve_slam`` that binds and stops before its first message."""
+    from graph_slam_tpu_torch.serving import serve_slam
+
+    return serve_slam(SR4000, port=0, max_messages=0, **kw)
+
+
+def _cli(**kw):
+    """``python -m graph_slam_tpu_torch [--device D] diff`` in process: the
+    top-level option or, without it, the card."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from graph_slam_tpu_torch import cli
+    from graph_slam_tpu_torch.io import write_vro_log
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vro.log")
+        write_vro_log(path, _log())
+        argv = ["diff", "--log1", path, "--log2", path]
+        if "device" in kw:
+            argv = ["--device", kw["device"]] + argv
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return buf.getvalue()
+
+
+def _host_and_service_entry_points():
+    return dict(_host_entry_points(), accumulate_cloud=_accumulate,
+                serve_slam=_serve, cli=_cli)
+
+
+@pytest.mark.parametrize("name", sorted(_host_and_service_entry_points()))
 def test_host_entry_point_defaults_to_the_card(name):
-    call = _host_entry_points()[name]
+    call = _host_and_service_entry_points()[name]
     assert call(device="cpu") is not None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):

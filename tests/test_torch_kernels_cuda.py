@@ -785,3 +785,104 @@ def test_online_slam_on_the_card_matches_the_cpu():
     np.testing.assert_array_equal(lc.id_to, lp.id_to)
     np.testing.assert_allclose(card.trajectory()[1], cpu.trajectory()[1],
                                atol=1e-5)
+
+
+def _room_volume(device, n, n_frames):
+    """``n_frames`` 640 x 480 box-room frames fused into an n^3 grid over
+    the room on ``device`` (float64 poses, as ``fuse_trajectory`` gives)."""
+    import frontend_reference_ate as fra
+    from graph_slam_tpu_torch.mapping import tsdf
+
+    K, frames = _room_frames(n_frames)
+    R, t = fra.room_path(1000)
+    vol = tsdf.make_volume((-4.0, -2.0, -4.0), 8.0, n, device=device)
+    for k, (_, depth) in enumerate(frames):
+        tsdf.integrate(vol, K, torch.as_tensor(depth, device=vol.tsdf.device),
+                       torch.as_tensor(R[k], device=vol.tsdf.device),
+                       torch.as_tensor(t[k], device=vol.tsdf.device))
+    return vol
+
+
+def test_tsdf_integrate_on_the_card_matches_the_cpu(monkeypatch):
+    """Ten box-room frames into a 128^3 grid on the card (in slabs of 16
+    planes) and on the CPU: the weights differ on at most 1e-4 of the
+    voxels (a voxel whose pixel lies at a centre +- 0.5 may round to
+    another pixel), the tsdf within 1e-5 where both updated."""
+    from graph_slam_tpu_torch.mapping import tsdf
+
+    _cuda()
+    monkeypatch.setattr(tsdf, "SLAB_VOXELS", 16 * 128 * 128)
+    card = _room_volume(None, 128, 10)
+    monkeypatch.undo()
+    cpu = _room_volume("cpu", 128, 10)
+    assert card.tsdf.device.type == "cuda"
+    wc, wp = card.weight.cpu(), cpu.weight
+    flips = int((wc != wp).sum())
+    assert flips <= 1e-4 * wp.numel(), flips
+    both = (wc > 0) & (wp > 0) & (wc == wp)
+    assert int(both.sum()) > 0.01 * wp.numel()
+    assert float((card.tsdf.cpu() - cpu.tsdf)[both].abs().max()) <= 1e-5
+
+
+def test_tsdf_candidate_mask_on_the_card_matches_numpy():
+    """The device candidate cubes and their corner values equal numpy's
+    on the same fused volume, and so does the extracted mesh."""
+    from graph_slam_tpu_torch.mapping import tsdf
+
+    _cuda()
+    vol = _room_volume(None, 96, 6)
+    tsdf_h, wgt_h = vol.tsdf.cpu().numpy(), vol.weight.cpu().numpy()
+    cubes, values = tsdf.candidate_cubes(vol, 1.0)
+    assert cubes.device.type == "cuda"
+    n = tsdf_h.shape[0]
+    vals8 = np.stack([tsdf._shifted(tsdf_h.astype(np.float64), c, n)
+                      for c in tsdf._CORNERS])
+    wt8 = np.stack([tsdf._shifted(wgt_h, c, n) for c in tsdf._CORNERS])
+    cand = (wt8 >= 1.0).all(0) & (vals8 < 0).any(0) & (vals8 >= 0).any(0)
+    np.testing.assert_array_equal(cubes.cpu().numpy(), np.argwhere(cand))
+    np.testing.assert_array_equal(values.cpu().numpy().astype(np.float64),
+                                  vals8[:, cand].T)
+    V, F = tsdf.extract_mesh(vol)
+    Vn, Fn = tsdf.extract_mesh_numpy(tsdf_h, wgt_h, vol.origin.cpu().numpy(),
+                                     vol.voxel.cpu().numpy())
+    assert len(F) > 1000
+    np.testing.assert_array_equal(V, Vn)
+    np.testing.assert_array_equal(F, Fn)
+
+
+def test_cli_slam_on_the_card_matches_the_in_process_run(tmp_path):
+    """``slam`` through ``cli.main`` on the card over a ``.gsf`` store of
+    twelve box-room frames against ``OnlineSlam`` on the card fed the
+    decoded frames: statuses and trajectory within 1e-6 m."""
+    import contextlib
+    import io
+
+    from graph_slam_tpu_torch import cli
+    from graph_slam_tpu_torch.config import RS435, SlamParams
+    from graph_slam_tpu_torch.io import FrameStore, read_trajectory
+    from graph_slam_tpu_torch.pipelines import OnlineSlam
+
+    _cuda()
+    _, frames = _room_frames(12)
+    store = FrameStore(str(tmp_path / "frames"))
+    for k, (i, d) in enumerate(frames):
+        store.save(k, i, d)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["slam", "--camera", "rs435", "--global-loop-k", "2",
+                  "--frames", str(tmp_path / "frames"), "--out-dir",
+                  str(tmp_path / "out")])
+    slam = OnlineSlam(cam=RS435, params=SlamParams(), global_loop_k=2)
+    counts = {}
+    for k in range(12):
+        st = slam.process_frame(*store(k), seq_id=k)
+        counts[st] = counts.get(st, 0) + 1
+    slam.optimize()
+    summary = " ".join(f"{k}={v}" for k, v in sorted(counts.items()))
+    assert f"frames=12 keyframes={slam.num_keyframes} [{summary}]" in \
+        buf.getvalue()
+    got = read_trajectory(str(tmp_path / "out" / "trajectory.log"))
+    _, t, q, seqs = slam.trajectory()
+    np.testing.assert_array_equal(got.seq, seqs)
+    np.testing.assert_allclose(got.t, t, atol=1e-6)
+    np.testing.assert_allclose(got.quat, q, atol=1e-6)
