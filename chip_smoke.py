@@ -136,7 +136,24 @@ Phases, one JSON line each:
              gates; (f) one ``python -m graph_slam_tpu_torch posegraph``
              subprocess against the golden chi2, ``presets`` and the native
              IO runtime.
-14. profile — the replays of phases 9, 10 and 11 on their scenarios'
+14. sharded — multi-device solving (``graph_slam_tpu_torch.parallel``,
+             one process a rank over ``torch.distributed``): (a)
+             ``dryrun_multichip(4, backend="gloo")``, four ranks sharing
+             the card: sphere2500 PCG-50 (float32), the 16 x 480
+             landmark-sharded square-root BA, the 12-frame VIO window, an
+             8 x 60-pose fleet and a dense-H step, each to the reference's
+             convergence bar, printed beside ``MULTICHIP_r05.json``'s chi2;
+             (b) one NCCL rank: sphere2500 PCG-50 within 5e-2 of
+             ``gn_optimize``; (c) float64, four gloo ranks on the card
+             against four on the CPU: the 48-pose dense GN and the
+             121-landmark square-root BA within 1e-9, every card rank
+             bit-equal to rank 0; (d) ``g2o --sharded 1 --iters 15``
+             through ``cli.main`` against the golden pin (1e-3); (e) the
+             dry run over NCCL on distinct cards, only where the machine
+             has two or more. Wall times, ms per all_reduce and bytes
+             reduced per GN iteration are reported; gloo on one card
+             reduces through host memory and measures no interconnect.
+15. profile — the replays of phases 9, 10 and 11 on their scenarios'
              first 101 frames (timed in those phases; the rescue's and the
              online engine's each end with a rescue), one GN iteration of
              (7d) and (12c)'s 64 frames again under ``torch.profiler``:
@@ -144,15 +161,18 @@ Phases, one JSON line each:
              share, top device ops. It runs after every timed run, as a
              profiler session slows the process's later launches.
 
-Phases 3-14 are the main path, driven on the port's default device (the
+Phases 3-15 are the main path, driven on the port's default device (the
 card): the kernel's launch counter is set to 0 just before phases 3-8 and
 read just after (phases 6 and 7 on their own are held to 0 launches),
 again around phase 9, which launches no hand-written kernel, around phase
 10 and around phase 11, where each rescue whose previous frame had planes
 launches it once, around phase 12 (held to 0: the frontend's work is
 torch operations, cuDNN, cuBLAS and cuSOLVER), around phase 13 (its
-``vio`` run's predictions, each one launch), and around each replay
-that phase 14 profiles (each held to its predictions, at least one in the
+``vio`` run's predictions, each one launch), around phase 14 (held to
+0: the sharded solvers' work is torch operations and collectives; it runs
+in the ranks that ``launch`` spawns, each of which sends back its own
+count, and the phase's count is the parent's plus the ranks'), and
+around each replay that phase 15 profiles (each held to its predictions, at least one in the
 rescue's and the online engine's). The
 region-grow kernel is timed on the fill inputs of real frames (phase
 ``frames``) and of a rescue, and the script
@@ -3377,6 +3397,140 @@ def phase_cli(smi):
     return launches
 
 
+def _multichip_r05():
+    """config -> (chi2_0, chi2) of the JAX package's dry run in
+    ``MULTICHIP_r05.json`` (8 virtual CPU devices): accuracy figures to
+    print beside the port's; its wall times are no target."""
+    with open(os.path.join(ROOT, "MULTICHIP_r05.json")) as f:
+        tail = json.load(f)["tail"]
+    rows = [json.loads(x) for x in tail.splitlines() if x.startswith("{")]
+    return {r["config"]: (r["chi2_0"], r["chi2"]) for r in rows}
+
+
+def _held(a, b, tol, what):
+    """Every array of two results (nested tuples of arrays and numbers)
+    within ``tol`` (the chi2 and other scalars relative); the largest
+    gap."""
+    import numpy as np
+
+    def leaves(x):
+        if isinstance(x, (tuple, list)):
+            return [y for v in x for y in leaves(v)]
+        return [np.asarray(x, dtype=np.float64)]
+
+    worst = 0.0
+    for x, y in zip(leaves(a), leaves(b), strict=True):
+        gap = float(np.abs(x - y).max()) if x.size else 0.0
+        if x.ndim == 0:
+            gap /= max(abs(float(y)), 1e-300)
+        _require(gap <= tol, f"{what}: {gap} > {tol}")
+        worst = max(worst, gap)
+    return worst
+
+
+def phase_sharded(smi):
+    """Multi-device solving on the card (``graph_slam_tpu_torch.parallel``,
+    one process a rank). (a) the dry run on 4 gloo ranks sharing the card;
+    (b) one NCCL rank: sphere2500 PCG-50 against ``gn_optimize``; (c) the
+    48-pose dense GN and the 121-landmark square-root BA (float64) on 4
+    gloo ranks on the card against 4 on the CPU, every rank bit-equal to
+    rank 0; (d) ``g2o --sharded 1`` through ``cli.main``; (e) the dry run
+    over NCCL on distinct cards where there are two or more. Gloo on one
+    card reduces through host memory: its times measure no interconnect."""
+    import torch
+
+    from graph_slam_tpu_torch.datasets import (make_ba_graph,
+                                               make_sphere_graph)
+    from graph_slam_tpu_torch.graph import gn_optimize, total_error
+    from graph_slam_tpu_torch.parallel import (launch, sharded_ba_sqrt,
+                                               sharded_gn)
+    from graph_slam_tpu_torch.parallel.dryrun import dryrun_multichip
+    from graph_slam_tpu_torch.parallel.launch import run_calls
+
+    out = {"phase": "sharded", "card": smi,
+           "cards": torch.cuda.device_count()}
+    t_phase = time.perf_counter()
+    ref = _multichip_r05()
+
+    # (a) the dry run, 4 gloo ranks on one card
+    t0 = time.perf_counter()
+    rows = dryrun_multichip(4, backend="gloo")
+    out["a_dryrun_s"] = time.perf_counter() - t0
+    for row in rows:
+        name = row["config"]
+        if name.startswith("fleet-"):
+            name = "fleet-16x60-pose-dp"        # its run had 8 devices
+        row["multichip_r05"] = {"config": name, "chi2_0": ref[name][0],
+                                "chi2": ref[name][1]} if name in ref else None
+    out["a_dryrun"] = rows
+
+    # (b) one NCCL rank on the card: sphere2500, PCG-50, 8 iterations
+    g, v, _ = make_sphere_graph(n_poses=2500, edges_per_pose=4.0, seed=0,
+                                dtype=torch.float32, bucket=256)
+    e0 = float(total_error(g, v))
+    t0 = time.perf_counter()
+    vals, err = launch(1, sharded_gn, g, v, iterations=8, damping=1e-6,
+                       solver="pcg", pcg_iters=50)[0]
+    b = out["b_nccl_1rank"] = {"s": time.perf_counter() - t0,
+                               "chi2_0": e0, "chi2": float(err)}
+    res = gn_optimize(g, v, iterations=8, solver="pcg", pcg_iters=50,
+                      damping=1e-6)
+    b["gn_optimize_chi2"] = float(res.error)
+    b["rel"] = abs(b["chi2"] - b["gn_optimize_chi2"]) / b["gn_optimize_chi2"]
+    _require(b["chi2"] < 1e-2 * e0 and b["rel"] <= 5e-2,
+             f"1-rank NCCL sphere2500: {b}")
+
+    # (c) float64, 4 gloo ranks on the card against 4 on the CPU
+    gs, vs, _ = make_sphere_graph(n_poses=48, edges_per_pose=3.0, seed=0,
+                                  dtype=torch.float64, bucket=16,
+                                  device="cpu")
+    gb, vb, _ = make_ba_graph(n_poses=8, n_points=121, obs_per_point=3,
+                              seed=4, dtype=torch.float64, bucket=1,
+                              device="cpu")
+    calls = [(sharded_gn, (gs, vs), dict(iterations=6, damping=1e-4,
+                                         solver="dense")),
+             (sharded_ba_sqrt, (gb, vb), dict(iterations=6, damping=1e-3,
+                                              chunk=16))]
+    t0 = time.perf_counter()
+    card = launch(4, run_calls, calls, backend="gloo")
+    c = out["c_card_vs_cpu"] = {"card_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    cpu = launch(4, run_calls, calls, device="cpu")
+    c["cpu_s"] = time.perf_counter() - t0
+    for r in range(1, 4):
+        _held(card[r], card[0], 0.0, f"card rank {r} against rank 0")
+    c["dense_gap"] = _held(card[0][0], cpu[0][0], 1e-9,
+                           "dense GN card vs CPU")
+    c["ba_sqrt_gap"] = _held(card[0][1], cpu[0][1], 1e-9,
+                             "square-root BA card vs CPU")
+    c["chi2"] = [float(card[0][0][1]), float(card[0][1][1])]
+
+    # (d) the command line, one rank on the card
+    pins = json.load(open(os.path.join(GOLDEN, "chi2.json")))
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout, secs = _cli("g2o", "--input",
+                            os.path.join(GOLDEN, "sphere200_noisy.g2o"),
+                            "--out-dir", tmp, "--sharded", "1", "--iters",
+                            "15")
+    line = next(x for x in stdout.splitlines() if x.startswith("chi2:"))
+    d = out["d_cli"] = {"s": secs, "stdout": line,
+                        "chi2": float(line.split("-> ")[1].split(" ")[0]),
+                        "pin": pins["g2o_error"]}
+    _require("over 1 devices" in line
+             and abs(d["chi2"] - d["pin"]) <= 1e-3 * d["pin"],
+             f"g2o --sharded 1: {line} against the pin {d['pin']}")
+
+    # (e) NCCL over distinct cards, where the machine has them
+    if out["cards"] >= 2:
+        t0 = time.perf_counter()
+        out["e_nccl_dryrun"] = dryrun_multichip(min(4, out["cards"]))
+        out["e_s"] = time.perf_counter() - t0
+    else:
+        out["e_nccl_dryrun"] = "not run: one card"
+    out["seconds"] = time.perf_counter() - t_phase
+    _emit(out)
+
+
 def phase_profiles(vio_job, rescue_job, online_job, ba_job, frontend_job):
     """The VIO, rescue and online prefix replays and one GN iteration of
     ``ba_sqrt_100k`` again under the profiler, after every timed run of
@@ -3489,6 +3643,18 @@ def main(argv=None):
     _require(region_grow.launches == cli_launches > 0,
              f"the cli phase launched region_grow {region_grow.launches} "
              f"times, its vio run {cli_launches}")
+    # the phase's work runs in the ranks that ``launch`` spawns: each rank
+    # sends back its own count, which ``launch`` adds up
+    from graph_slam_tpu_torch.parallel import launch as launch_ranks
+
+    region_grow.launches = 0
+    launch_ranks.region_grow_launches = 0
+    phase_sharded(smi)
+    sharded_launches = (region_grow.launches
+                        + launch_ranks.region_grow_launches)
+    _require(sharded_launches == 0, "the sharded phase launched "
+             f"region_grow {sharded_launches} times (its ranks "
+             f"{launch_ranks.region_grow_launches})")
     profiled = phase_profiles(vio_job, rescue_job, online_job, ba_job,
                               frontend_job)
     rescue_launches += profiled["rescue"]
@@ -3501,12 +3667,13 @@ def main(argv=None):
         "source": "graph_slam_tpu_torch/csrc/region_grow.cu",
         "replaces": "graph_slam_tpu/planes/pallas_grow.py:78",
         "launches": launches + rescue_launches + online_launches
-        + cli_launches,
+        + cli_launches + sharded_launches,
         "launches_by_path": {"posegraph": 0, "ba": ba_launches,
                              "planes": launches, "rescue": rescue_launches,
                              "online": online_launches,
                              "frontend": frontend_launches,
-                             "cli": cli_launches},
+                             "cli": cli_launches,
+                             "sharded": sharded_launches},
         "max_abs_err": max(timing["mismatches"],
                            rescue_timing["mismatches"]),
         "shape": timing["shape"], "ms": timing["device_us"] / 1e3,

@@ -41,10 +41,16 @@ Ported so far:
   (``serving``), the launch-file presets (``config``, ``configs/``), the
   RGB-D readers (``io.rgbd_png``, ``io.sr4000``, ``io.tum``),
   ``utils.colors`` and the native IO runtime (``native``, C++ over
-  ctypes, with numpy fallbacks).
+  ctypes, with numpy fallbacks);
+- multi-device solving over ``torch.distributed`` (``parallel``): one
+  process a rank (``parallel.launch``), factor-sharded dense and
+  matrix-free PCG GN, landmark-sharded square-root BA, the sharded fleet
+  (``graph.sharded_gn_many``), ``BaImuConfig.sharded``, ``g2o --sharded
+  N``, ``ba-imu --sharded N`` and the multi-device dry run
+  (``parallel.dryrun``).
 
-Not ported yet: multi-device sharding (ROADMAP item G; ``g2o --sharded
-N`` and ``ba-imu --sharded N`` with N > 0 exit saying so).
+Every module of the JAX package has its counterpart here but
+``core/trig.py``, dropped with a parity test (``core/so3.py``).
 
 Importing the package changes no process-wide torch setting: tensors
 default to whatever dtype the caller has set (entry points take

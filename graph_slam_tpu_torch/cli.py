@@ -42,9 +42,10 @@ card; ``--device cpu`` runs on the CPU):
 
 Frame directories hold ``.gsf`` files named ``{seq:07d}.gsf``
 (``io.frames.FrameStore``); ``--camera`` picks the intrinsics preset.
-Multi-device solving (``g2o --sharded N``, ``ba-imu --sharded N`` with
-N > 0) is not ported yet (ROADMAP item G): those invocations exit with a
-message that says so.
+``g2o --sharded N`` and ``ba-imu --sharded N`` solve over N ranks, one
+process each (``parallel.launch``): one card a rank over NCCL, or, with
+``--device cpu``, N gloo processes on the CPU. N < 0 takes every card (one
+rank on the CPU).
 """
 
 from __future__ import annotations
@@ -55,12 +56,6 @@ import os
 import sys
 
 import numpy as np
-
-NOT_PORTED_SHARDED = ("{cmd} --sharded: multi-device solving is not ported "
-                      "to graph_slam_tpu_torch yet (ROADMAP item G); run "
-                      "without --sharded (or --sharded 0) for the "
-                      "single-device solve")
-
 
 def _load_params(args):
     from .config import SlamParams, load_params
@@ -85,6 +80,16 @@ def _device(args):
     from .device import resolve
 
     return resolve(args.device)
+
+
+def _ranks(n, dev):
+    """``--sharded N``'s rank count: N, or for N < 0 every card (one rank
+    on the CPU)."""
+    if n > 0:
+        return n
+    import torch
+
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
 def _plane_provider(store, K, dev, **kw):
@@ -434,15 +439,42 @@ def cmd_g2o(args):
     from .io import write_trajectory
     from .pipelines import run_g2o_file, trajectory_arrays
 
+    dev = _device(args)
     if args.sharded:
-        raise SystemExit(NOT_PORTED_SHARDED.format(cmd="g2o"))
-    res = run_g2o_file(args.input, LMParams(),
-                       init=getattr(args, "init", "odometry"),
-                       loop_gate=getattr(args, "loop_gate", "none")
-                       or "none", device=_device(args))
-    print(f"chi2: {res.error0:.6f} -> {res.error:.6f} "
-          f"({res.iterations} LM iterations, "
-          f"{len(res.seq_ids)} vertices)")
+        from .convert import arena_from_numpy
+        from .graph import total_error
+        from .io import read_g2o
+        from .parallel import launch, sharded_gn
+        from .pipelines import build_graph_from_g2o
+        from .pipelines.posegraph import PoseGraphResult
+
+        vertices, edges = read_g2o(args.input)
+        graph, values, ids = build_graph_from_g2o(vertices, edges,
+                                                  device=dev)
+        n_dev = _ranks(args.sharded, dev)
+        e0 = float(total_error(graph, values))
+        if getattr(args, "init", "odometry") == "chordal":
+            from .graph import chordal_initialize
+            values = chordal_initialize(graph, values)
+        vals, err = launch(n_dev, sharded_gn, graph, values,
+                           iterations=args.iters, damping=1e-6,
+                           solver="pcg", device=dev)[0]
+        res = PoseGraphResult(
+            values=arena_from_numpy(vals, device=dev,
+                                    dtype=values.pose_t.dtype),
+            graph=graph, error0=e0, error=float(err), seq_ids=ids,
+            iterations=args.iters)
+        print(f"chi2: {res.error0:.6f} -> {res.error:.6f} "
+              f"({args.iters} sharded GN iterations over {n_dev} devices, "
+              f"{len(res.seq_ids)} vertices)")
+    else:
+        res = run_g2o_file(args.input, LMParams(),
+                           init=getattr(args, "init", "odometry"),
+                           loop_gate=getattr(args, "loop_gate", "none")
+                           or "none", device=dev)
+        print(f"chi2: {res.error0:.6f} -> {res.error:.6f} "
+              f"({res.iterations} LM iterations, "
+              f"{len(res.seq_ids)} vertices)")
     os.makedirs(args.out_dir, exist_ok=True)
     ids, t, q, seq = trajectory_arrays(res.values, res.seq_ids)
     write_trajectory(os.path.join(args.out_dir, "trajectory.log"),
@@ -651,8 +683,6 @@ def cmd_ba_imu(args):
         run_ba_imu,
     )
 
-    if args.sharded:
-        raise SystemExit(NOT_PORTED_SHARDED.format(cmd="ba-imu"))
     if args.imu and not args.times:
         raise SystemExit("ba-imu: --times is required with --imu")
     parts = args.seqs.split(":")
@@ -671,7 +701,9 @@ def cmd_ba_imu(args):
         stream = read_vn100_log(args.imu)
         iparams = vn100_params(device=dev)
         times = _read_times(args.times)
-    cfg = BaImuConfig(use_imu=bool(args.imu))
+    cfg = BaImuConfig(use_imu=bool(args.imu),
+                      sharded=_ranks(args.sharded, dev) if args.sharded
+                      else 0)
     res = run_ba_imu(frames, matches, times.get, stream, iparams, K,
                      cfg=cfg, device=dev)
     print(f"chi2 {res.error0:.6f} -> {res.error:.6f} "

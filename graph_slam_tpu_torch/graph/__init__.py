@@ -11,8 +11,8 @@ from .ba_solve import (ba_gn_optimize, ba_gn_optimize_sqrt, build_point_obs,
                        schur_gn_step, sqrt_schur_gn_step)
 from .banded import (band_halfwidth, banded_direct_gn_optimize,
                      banded_gn_optimize)
-from .batch import (gn_optimize_many, solve_many, stack_pytrees,
-                    unstack_pytree)
+from .batch import (gn_optimize_many, sharded_gn_many, solve_many,
+                    stack_pytrees, unstack_pytree)
 from .builder import GraphBuilder, round_up
 from .factors import (BetweenPoseTable, FactorGraph, ImuTable, PlaneTable,
                       PriorPointTable, PriorPoseTable, PriorVec3Table,
@@ -46,6 +46,7 @@ __all__ = [
     "joint_marginal", "pose_marginals_all",
     "Incidence", "build_incidence", "gather_sum",
     "gn_optimize_many", "solve_many", "stack_pytrees", "unstack_pytree",
+    "sharded_gn_many",
     "band_halfwidth", "banded_gn_optimize", "banded_direct_gn_optimize",
     "chordal_initialize", "project_so3",
     "GncResult", "gnc_optimize",

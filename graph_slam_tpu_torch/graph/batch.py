@@ -11,8 +11,11 @@ block-diagonal graph: PCG's step sizes alpha and beta are reductions, and
 one shared pair would make each graph's iterates differ from its own
 ``gn_optimize``; under the map every dot product is per graph.
 
-The reference's ``sharded_gn_many`` (the batch axis over a device mesh)
-waits for the multi-device slice (ROADMAP item G).
+``sharded_gn_many`` adds the batch axis over the ranks of a process group
+(``parallel``): each rank solves its slice of the fleet with
+``gn_optimize_many``, and the whole batch's result is assembled on every
+rank by one sum of zero-filled buffers per leaf (graphs are independent,
+so no collective runs inside the solve).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from .lm import LMResult, gn_optimize
 from .variables import VariableArena
 
 __all__ = ["stack_pytrees", "unstack_pytree", "gn_optimize_many",
-           "solve_many"]
+           "solve_many", "sharded_gn_many"]
 
 
 def _map(fn, *trees):
@@ -91,3 +94,32 @@ def solve_many(pairs, iterations: int = 10, solver: str = "pcg",
     return [LMResult(v, e, res.iterations, res.lam, res.converged)
             for v, e in zip(unstack_pytree(res.values, len(pairs)),
                             res.error)]
+
+
+def sharded_gn_many(mesh, graphs: FactorGraph, values: VariableArena,
+                    iterations: int = 10, solver: str = "pcg",
+                    damping: float = 0.0, pcg_iters: int = 250) -> LMResult:
+    """Batch-of-graphs GN with the BATCH axis split over the ranks of
+    ``mesh`` (``parallel.make_mesh``): pure data parallelism over
+    independent problems. Every rank passes the whole batch and gets the
+    whole batch's :class:`LMResult`. The batch size must be divisible by the
+    mesh size. (Contrast ``parallel.sharded_gn``, which splits the FACTORS
+    of one large graph and reduces once per CG iteration.)
+    """
+    b = values.pose_t.shape[0]
+    if b % mesh.size:
+        raise ValueError(f"batch {b} not divisible by mesh size {mesh.size}")
+    c = b // mesh.size
+    mine = slice(mesh.rank * c, (mesh.rank + 1) * c)
+    res = gn_optimize_many(_map(lambda x: x[mine], graphs),
+                           _map(lambda x: x[mine], values),
+                           iterations=iterations, solver=solver,
+                           damping=damping, pcg_iters=pcg_iters)
+
+    def whole(x):
+        out = x.new_zeros((b, *x.shape[1:]))
+        out[mine] = x
+        return mesh.all_reduce(out)
+
+    return LMResult(_map(whole, res.values), whole(res.error), iterations,
+                    damping, True)

@@ -12,9 +12,12 @@ normal-equations Schur (``ba_gn_optimize``), any other dtype the
 square-root Schur (``ba_gn_optimize_sqrt``), whose normal equations would
 cancel in float32, unless a feature track is longer than
 ``_SQRT_MAX_TRACK`` observations, when generic LM runs instead.
-``features_from_store`` builds ``run_ba_imu``'s inputs from raw RGB-D
-frames through the feature frontend. Landmark-sharded solving is not
-ported (ROADMAP item G).
+``BaImuConfig.sharded = N > 0`` runs the square-root Schur with its
+landmarks split over N ranks instead (``parallel.sharded_ba_sqrt`` under
+``parallel.launch`` on ``device``), whatever the dtype, while the longest
+track is within ``_SQRT_MAX_TRACK``. ``features_from_store`` builds
+``run_ba_imu``'s inputs from raw RGB-D frames through the feature
+frontend.
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ class BaImuConfig:
     solver: str = "schur"            # "schur" | "lm"
     schur_iters: int = 10
     bucket: int = 64
+    sharded: int = 0                 # >0: landmark-sharded solve over N
+    #                                  ranks (parallel.sharded_ba_sqrt)
 
 
 @dataclasses.dataclass
@@ -210,18 +215,28 @@ def run_ba_imu(frames, matches: Callable, img_times,
         pidx = pj.point_idx[pj.active].cpu().numpy()
         max_track = int(np.bincount(pidx).max()) if pidx.size else 0
         track_ok = max_track <= _SQRT_MAX_TRACK
-        if dtype == torch.float64:
+        if not track_ok and (cfg.sharded > 0 or dtype != torch.float64):
+            warnings.warn(
+                f"ba-imu: longest feature track ({max_track} observations) "
+                f"exceeds {_SQRT_MAX_TRACK}; the sqrt-Schur elimination "
+                "would pad every landmark to it — falling back to the "
+                "generic LM solver"
+                + (" (the --sharded mesh will sit idle)" if cfg.sharded
+                   else ""))
+        if cfg.sharded > 0 and track_ok:
+            from ..convert import arena_from_numpy
+            from ..parallel import launch, sharded_ba_sqrt
+
+            vals, err = launch(cfg.sharded, sharded_ba_sqrt, graph, values,
+                               iterations=cfg.schur_iters, device=device)[0]
+            vals = arena_from_numpy(vals, device=device, dtype=dtype)
+        elif dtype == torch.float64:
             vals, err = ba_gn_optimize(graph, values,
                                        iterations=cfg.schur_iters)
         elif track_ok:
             vals, err = ba_gn_optimize_sqrt(graph, values,
                                             iterations=cfg.schur_iters)
         else:
-            warnings.warn(
-                f"ba-imu: longest feature track ({max_track} observations) "
-                f"exceeds {_SQRT_MAX_TRACK}; the sqrt-Schur elimination "
-                "would pad every landmark to it — falling back to the "
-                "generic LM solver")
             res = lm_optimize(graph, values, lm_params)
             vals, err = res.values, res.error
     else:

@@ -352,6 +352,43 @@ def test_ba_without_imu():
     assert res.n_imu_factors == 0 and res.n_landmarks == 20
 
 
-def test_ba_imu_config_has_no_sharded_option():
-    with pytest.raises(TypeError):
-        BaImuConfig(sharded=8)
+def test_sharded_ba_imu_matches_the_reference():
+    """``BaImuConfig(sharded=2)``: the landmark-sharded square-root Schur
+    on two gloo ranks, against the JAX package's on ``make_mesh(2)`` (the
+    same scene as ``noisy_refs``' "imu", with the same bars)."""
+    frames, times, jimu, timu, _ = _scene(6, 5, 6, 25, noise_px=0.5)
+    ref = j_run_ba_imu(frames, _matches(25), times, *jimu, J_SR4000,
+                       cfg=JBaImuConfig(**IMU_CFG, sharded=2))
+    res = run_ba_imu(frames, _matches(25), times, *timu, SR4000,
+                     cfg=BaImuConfig(**IMU_CFG, sharded=2), device="cpu")
+    assert (res.n_landmarks, res.n_projection_factors,
+            res.n_imu_factors) == (ref.n_landmarks, ref.n_projection_factors,
+                                   ref.n_imu_factors)
+    assert res.values.pose_t.dtype == torch.float64
+    assert abs(res.error0 - ref.error0) <= 1e-8 * ref.error0
+    assert abs(res.error - ref.error) <= 1e-8 * ref.error
+    assert res.error < res.error0
+    for f in ("pose_t", "pose_R", "vel", "bias", "point"):
+        np.testing.assert_allclose(getattr(res.values, f).numpy(),
+                                   np.asarray(getattr(ref.values, f)),
+                                   rtol=0, atol=1e-8, err_msg=f)
+
+
+def test_sharded_ba_imu_with_a_long_track_warns_and_solves_alone(
+        monkeypatch):
+    """A track longer than ``_SQRT_MAX_TRACK`` keeps the mesh idle, with
+    the reference's warning, and the dtype's own solver runs."""
+    from graph_slam_tpu_torch.pipelines import ba_imu
+
+    frames, times, _, timu, _ = _scene(6, 5, 6, 25)
+    monkeypatch.setattr(ba_imu, "_SQRT_MAX_TRACK", 2)
+    called = []
+    for name in ("ba_gn_optimize", "ba_gn_optimize_sqrt", "lm_optimize"):
+        fn = getattr(ba_imu, name)
+        monkeypatch.setattr(ba_imu, name, lambda *a, _f=fn, _n=name, **k: (
+            called.append(_n), _f(*a, **k))[1])
+    with pytest.warns(UserWarning, match="--sharded mesh will sit idle"):
+        res = run_ba_imu(frames, _matches(25), times, *timu, SR4000,
+                         cfg=BaImuConfig(**IMU_CFG, sharded=2), device="cpu")
+    assert called == ["ba_gn_optimize"]
+    assert res.error < 1e-3

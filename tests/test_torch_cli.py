@@ -150,14 +150,6 @@ def test_preset_args_with_device_first(scenario):
                   "--config", "mapping_PCD"])
 
 
-@pytest.mark.parametrize("argv", [["g2o", "--input", "x.g2o"],
-                                  ["ba-imu", "--frames", "x", "--seqs",
-                                   "0:2"]])
-def test_sharded_exits_naming_item_g(argv):
-    with pytest.raises(SystemExit, match="ROADMAP item G"):
-        cli.main(["--device", "cpu", *argv, "--sharded", "2"])
-
-
 def test_module_entry_point_subprocess():
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
@@ -242,6 +234,35 @@ def test_g2o_matches_the_golden_pin(tmp_path):
     assert "200 vertices" in out
     got = read_trajectory(str(tmp_path / "trajectory.log"))
     assert len(got.t) == 200 and np.isfinite(got.t).all()
+
+
+def _chi2s(out, sep):
+    """(chi2 before, chi2 after) of a ``g2o`` (``sep="chi2: "``) or
+    ``ba-imu`` (``"chi2 "``) report."""
+    return tuple(float(x) for x in out.split(sep)[1].split(" (")[0]
+                 .split(" -> "))
+
+
+def test_g2o_sharded_matches_jax_and_the_pin(tmp_path):
+    """``g2o --sharded 2 --iters 15``: factor-sharded PCG on two gloo
+    ranks, held to the golden optimum at ``tests/test_cli.py::
+    test_g2o_sharded``'s 1e-3 and to the JAX package's ``main`` run in
+    process with the same arguments (two of the suite's virtual devices) at
+    1e-6: chi2 relative, trajectory in meters."""
+    args = ["g2o", "--input", os.path.join(GOLDENS, "sphere200_noisy.g2o"),
+            "--sharded", "2", "--iters", "15", "--out-dir"]
+    _, out = run_port(*args, str(tmp_path / "t"))
+    _, want = run_jax(*args, str(tmp_path / "j"))
+    assert "(15 sharded GN iterations over 2 devices, 200 vertices)" in out
+    pins = json.load(open(os.path.join(GOLDENS, "chi2.json")))
+    e0, e1 = _chi2s(out, "chi2: ")
+    je0, je1 = _chi2s(want, "chi2: ")
+    assert abs(e1 - pins["g2o_error"]) <= 1e-3 * pins["g2o_error"]
+    np.testing.assert_allclose([e0, e1], [je0, je1], rtol=1e-6)
+    got = read_trajectory(str(tmp_path / "t" / "trajectory.log"))
+    ref = jread_trajectory(str(tmp_path / "j" / "trajectory.log"))
+    np.testing.assert_array_equal(got.ids, np.asarray(ref.ids))
+    np.testing.assert_allclose(got.t, np.asarray(ref.t), rtol=0, atol=1e-6)
 
 
 def test_sparsify_matches_jax(scenario, tmp_path):
@@ -619,6 +640,21 @@ def test_ba_imu_matches_jax(scenario):
               .split(" -> "))
     np.testing.assert_allclose(e0, res.error0, rtol=1e-6)
     np.testing.assert_allclose(e1, res.error, rtol=1e-6)
+
+
+def test_ba_imu_sharded_matches_jax(scenario):
+    """``ba-imu --sharded 2``: the landmark-sharded square-root Schur on
+    two gloo ranks against the JAX package's ``main`` run in process with
+    the same arguments (``tests/test_cli.py::test_ba_imu_sharded``'s
+    command): the same counts, chi2 within 1e-6 relative."""
+    _, frames_dir, _, _ = scenario
+    args = ["ba-imu", "--frames", frames_dir, "--seqs", "0:5", "--sharded",
+            "2"]
+    _, out = run_port(*args)
+    _, want = run_jax(*args)
+    assert out.split(" (")[1] == want.split(" (")[1]     # counts
+    np.testing.assert_allclose(_chi2s(out, "chi2 "), _chi2s(want, "chi2 "),
+                               rtol=1e-6)
 
 
 def _slam_args(frames_dir, gt, out):

@@ -886,3 +886,65 @@ def test_cli_slam_on_the_card_matches_the_in_process_run(tmp_path):
     np.testing.assert_array_equal(got.seq, seqs)
     np.testing.assert_allclose(got.t, t, atol=1e-6)
     np.testing.assert_allclose(got.quat, q, atol=1e-6)
+
+
+# -- multi-device solving (graph_slam_tpu_torch.parallel) ----------------------
+
+
+def _leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [y for v in x for y in _leaves(v)]
+    return [np.asarray(x, dtype=np.float64)]
+
+
+def _held(a, b, tol):
+    for x, y in zip(_leaves(a), _leaves(b), strict=True):
+        np.testing.assert_allclose(x, y, rtol=tol, atol=tol)
+
+
+def test_sharded_gn_on_two_gloo_ranks_sharing_the_card_matches_the_cpu():
+    """Dense GN and PCG-60 on the 48-pose sphere (float64): two gloo ranks
+    on one card against two on the CPU within 1e-9, both card ranks
+    bit-equal."""
+    from graph_slam_tpu_torch.datasets import make_sphere_graph
+    from graph_slam_tpu_torch.parallel import launch, sharded_gn
+    from graph_slam_tpu_torch.parallel.launch import run_calls
+
+    _cuda()
+    g, v, _ = make_sphere_graph(n_poses=48, edges_per_pose=3.0, seed=0,
+                                dtype=torch.float64, bucket=16, device="cpu")
+    calls = [(sharded_gn, (g, v), dict(iterations=6, damping=1e-4,
+                                       solver=solver, pcg_iters=60))
+             for solver in ("dense", "pcg")]
+    before = launch.region_grow_launches
+    card = launch(2, run_calls, calls, backend="gloo", timeout=300)
+    assert launch.region_grow_launches == before    # the ranks sent 0
+    cpu = launch(2, run_calls, calls, device="cpu", timeout=300)
+    _held(card[1], card[0], 0.0)
+    _held(card[0], cpu[0], 1e-9)
+
+
+def test_sharded_ba_sqrt_on_one_nccl_rank_matches_the_in_process_solve():
+    """The landmark-sharded square-root BA on a one-rank NCCL group against
+    ``ba_gn_optimize_sqrt`` on the card in this process (121 landmarks,
+    float64, within 1e-9)."""
+    from graph_slam_tpu_torch.datasets import make_ba_graph
+    from graph_slam_tpu_torch.graph.ba_solve import ba_gn_optimize_sqrt
+    from graph_slam_tpu_torch.parallel import launch, sharded_ba_sqrt
+
+    dev = _cuda()
+    g, v, _ = make_ba_graph(n_poses=8, n_points=121, obs_per_point=3, seed=4,
+                            dtype=torch.float64, bucket=1, device=dev)
+    kw = dict(iterations=6, damping=1e-3, chunk=16)
+    got = launch(1, sharded_ba_sqrt, g, v, timeout=300, **kw)[0]
+    vals, err = ba_gn_optimize_sqrt(g, v, **kw)
+    _held(got, (tuple(x.cpu() for x in vals), err.cpu()), 1e-9)
+
+
+def test_launch_refuses_more_nccl_ranks_than_cards():
+    from graph_slam_tpu_torch.parallel import launch, sharded_gn
+
+    _cuda()
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="needs .* CUDA cards"):
+        launch(n, sharded_gn)
