@@ -79,8 +79,10 @@ Phases, one JSON line each:
              on the same scenario at 2,000 frames (``--rescue-frames``)
              with every 100th VO edge failed and rescued by planes, the JAX
              bench's ``vio_planes_2k`` configuration: a cold and a warm
-             replay in float64 (ATE within 2% of the path and within 1% of
-             the JAX package's figure pinned below), one in float32, the
+             replay in float64 (ATE within 2% of the path; at a length
+             pinned in ``RESCUE_JAX``, the JAX package's rescue steps,
+             plane factors and landmarks there, and at 2,000 frames its
+             float64 ATE within 1%), one in float32, the
              final dense LM over the rescue graph and its plane columns
              from the replay and from perturbed values, a 200-frame rescue
              replay on the card against the CPU, host syncs per rescue,
@@ -1987,12 +1989,23 @@ def phase_vio(n_frames):
 RESCUE_CFG = dict(engine="scan", plane_mode="rescue", optimize_step=10,
                   max_imu_window=64, window=16)
 RESCUE_ATE_PATH = 0.02   # the JAX bench's gate: ATE <= 2% of the path
-# the JAX package's ATE RMSE (m) on the 2,000-frame rescue scenario at
-# RESCUE_CFG, float64 on the CPU, Umeyama-aligned as ``_ate``:
-#     JAX_PLATFORMS=cpu python3 rescue_reference_ate.py --frames 2000
-RESCUE_ATE_JAX_M = 0.001651213
-RESCUE_ATE_JAX_FRAMES = 2000
-RESCUE_ATE_REL = 0.01    # the port's ATE within 1% of that figure
+# the JAX package's run of the rescue scenario at RESCUE_CFG, by frame
+# count: the ATE RMSE (m, Umeyama-aligned as ``_ate``), rescue steps,
+# plane factors and landmarks, float64 on the CPU, each from
+#     JAX_PLATFORMS=cpu python3 rescue_reference_ate.py --frames N
+# Beyond 2,000 frames the ATE is not pinned: a few rescues' fresh
+# extractions are near-ties that the RANSAC draws decide, so the port's
+# own ATE moves with its seed (over seeds 0-2: 1.7265-1.7861 mm at 5,000
+# frames, JAX 1.7267; 9.670-10.851 mm at 27,000, JAX 10.525; ROADMAP,
+# "Decided").
+RESCUE_JAX = {
+    2000: {"ate_m": 0.001651213, "rescue_steps": 19, "n_plane_factors": 74,
+           "landmarks": 38},
+    5000: {"rescue_steps": 49, "n_plane_factors": 198, "landmarks": 100},
+    10000: {"rescue_steps": 99, "n_plane_factors": 398, "landmarks": 200},
+    27000: {"rescue_steps": 269, "n_plane_factors": 898, "landmarks": 450},
+}
+RESCUE_ATE_REL = 0.01    # the port's ATE within 1% of JAX's at that length
 RESCUE_HELD = 1e-8       # 200-frame rescue replay, card vs CPU
 
 
@@ -2190,19 +2203,22 @@ def phase_rescue(n_frames):
                       cold_ms_per_rescue_step=cold_chk["ms_per_rescue_step"],
                       warm_peak_mem_gb=warm_peak)
     predictions += cold_chk["predictions"] + out["f64"]["predictions"]
+    pin = RESCUE_JAX.get(n_frames, {})
     for chk in (cold_chk, out["f64"]):
         _require(chk["ate_over_path"] <= RESCUE_ATE_PATH,
                  f"rescue ATE {chk['ate_mm']:.3f} mm beyond "
                  f"{RESCUE_ATE_PATH:g} of the {chk['path_m']:.3f} m path")
-        if n_frames == RESCUE_ATE_JAX_FRAMES:
-            rel = abs(chk["ate_mm"] / 1e3 - RESCUE_ATE_JAX_M) \
-                / RESCUE_ATE_JAX_M
+        if "ate_m" in pin:
+            rel = abs(chk["ate_mm"] / 1e3 - pin["ate_m"]) / pin["ate_m"]
             chk["ate_rel_to_jax"] = rel
             _require(rel <= RESCUE_ATE_REL,
                      f"rescue ATE {chk['ate_mm']:.6f} mm vs the JAX "
-                     f"package's {RESCUE_ATE_JAX_M * 1e3:.6f} mm: {rel:.3g}")
-    out["ate_jax_mm"] = RESCUE_ATE_JAX_M * 1e3 \
-        if n_frames == RESCUE_ATE_JAX_FRAMES else "not pinned at this length"
+                     f"package's {pin['ate_m'] * 1e3:.6f} mm: {rel:.3g}")
+        for k in ("rescue_steps", "n_plane_factors", "landmarks"):
+            _require(chk[k] == pin.get(k, chk[k]),
+                     f"rescue {k} {chk[k]} != the JAX package's "
+                     f"{pin.get(k)}")
+    out["jax"] = pin or "not pinned at this length"
     del cold
     # the same scenario without planes: what the rescue costs the replay
     free, free_s = _vio_replay(scenario, torch.float64)

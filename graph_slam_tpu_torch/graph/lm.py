@@ -160,8 +160,12 @@ def _solvers(blocks, mask, params: LMParams, inc: Incidence | None = None):
 
 
 def lm_optimize(graph: FactorGraph, values: VariableArena,
-                params: LMParams = LMParams()) -> LMResult:
-    """GTSAM LM: relinearize once per outer iteration, then lambda trials."""
+                params: LMParams = LMParams(),
+                inc: Incidence | None = None) -> LMResult:
+    """GTSAM LM: relinearize once per outer iteration, then lambda trials.
+
+    With an ``Incidence`` and ``params.solver == "pcg"`` each trial solves
+    with the gather PCG (Jacobi preconditioner)."""
     error = total_error(graph, values)
     lam = params.lambda_initial
     it = 0
@@ -169,7 +173,7 @@ def lm_optimize(graph: FactorGraph, values: VariableArena,
     while not done and it < params.max_iterations:
         blocks = linearize_blocks(graph, values)
         mask = used_slot_mask(values)
-        solve_fn, hmul, g = _solvers(blocks, mask, params)
+        solve_fn, hmul, g = _solvers(blocks, mask, params, inc)
 
         trials, accepted, stuck = 0, False, False
         new_vals, new_err = values, error

@@ -163,13 +163,14 @@ def test_module_entry_point_subprocess():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and ``chip_smoke.py``, imported in a fresh
-    process: neither ``jax`` nor ``graph_slam_tpu`` is loaded."""
+    """Every module of the port, ``chip_smoke.py`` and
+    ``rescue_port_ate.py``, imported in a fresh process: neither ``jax``
+    nor ``graph_slam_tpu`` is loaded."""
     code = ("import importlib, pkgutil, sys\n"
             "import graph_slam_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
-            "import chip_smoke\n"
+            "import chip_smoke, rescue_port_ate\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(\n"
             "    ('jax.', 'jaxlib')) or m.split('.')[0] == 'graph_slam_tpu']\n"
             "print(len(sys.modules), bad)\n")

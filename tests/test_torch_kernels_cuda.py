@@ -611,6 +611,29 @@ def test_solvers_on_the_card_match_the_cpu():
                                    single.values.pose_t.numpy(), atol=1e-9)
 
 
+def test_lm_optimize_over_the_gather_pcg_on_the_card_matches_the_cpu():
+    """``lm_optimize(inc=)`` on the 40-pose sphere of the CPU parity test
+    (``test_torch_solvers.py``), float64."""
+    from graph_slam_tpu_torch.datasets import make_sphere_graph
+    from graph_slam_tpu_torch.graph import (LMParams, build_incidence,
+                                            lm_optimize)
+
+    dev = _cuda()
+    g, v, _ = make_sphere_graph(40, 3.0, seed=2, bucket=8,
+                                dtype=torch.float64, device="cpu")
+    p = LMParams(solver="pcg")
+    cpu = lm_optimize(g, v, p, inc=build_incidence(g, v))
+    gd, vd = _graph_to(g, dev), _graph_to(v, dev)
+    card = lm_optimize(gd, vd, p, inc=build_incidence(gd, vd))
+    assert card.values.pose_t.is_cuda
+    assert card.iterations == cpu.iterations
+    assert abs(float(card.error) - float(cpu.error)) <= 1e-9 * float(cpu.error)
+    np.testing.assert_allclose(card.values.pose_t.cpu().numpy(),
+                               cpu.values.pose_t.numpy(), atol=1e-9)
+    np.testing.assert_allclose(card.values.pose_R.cpu().numpy(),
+                               cpu.values.pose_R.numpy(), atol=1e-9)
+
+
 def test_sqrt_schur_step_and_linearize_blocks_on_the_card_match_the_cpu():
     """A bundle-adjustment graph in float64: its linearized blocks (the
     projection rows through the camera's clamps) and one square-root Schur

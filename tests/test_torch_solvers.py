@@ -35,13 +35,15 @@ from graph_slam_tpu.graph.factors import total_error as j_total_error
 from graph_slam_tpu.graph.variables import used_slot_mask as j_used_mask
 from graph_slam_tpu_torch.convert import (arena_from_numpy, graph_from_numpy,
                                           to_numpy)
-from graph_slam_tpu_torch.graph import (ProjectionTable, assemble_dense,
+from graph_slam_tpu_torch.graph import (LMParams, ProjectionTable,
+                                        assemble_dense,
                                         band_halfwidth, empty_table,
                                         banded_direct_gn_optimize,
                                         banded_gn_optimize, build_incidence,
                                         chow_liu_tree, diag_precond,
                                         gn_optimize, gn_optimize_many,
                                         gradient, hvp_fn, linearize_blocks,
+                                        lm_optimize,
                                         marginalize_poses, solve_many,
                                         stack_pytrees, total_error,
                                         unstack_pytree, used_slot_mask)
@@ -251,6 +253,26 @@ def test_gn_optimize_options_match(sphere40, gn_refs, case):
         frozen = np.arange(0, 40, 3)
         np.testing.assert_array_equal(res.values.pose_t.numpy()[frozen],
                                       vt.pose_t.numpy()[frozen])
+
+
+@pytest.fixture(scope="module")
+def lm_gather_ref(sphere40):
+    """The reference's LM over the gather PCG on the 40-pose sphere."""
+    gj, vj, _, _ = sphere40
+    return jlm.lm_optimize(gj, vj, jlm.LMParams(solver="pcg"),
+                           inc=jsparsity.build_incidence(gj, vj))
+
+
+def test_lm_optimize_gather_pcg_matches(sphere40, lm_gather_ref):
+    """``lm_optimize(inc=)``: every trial solves with the gather PCG, as
+    the reference's ``lm_optimize`` does with an ``Incidence``."""
+    _, _, gt, vt = sphere40
+    ref = lm_gather_ref
+    res = lm_optimize(gt, vt, LMParams(solver="pcg"),
+                      inc=build_incidence(gt, vt))
+    assert res.iterations == int(ref.iterations)
+    assert _rel(res.error, ref.error) <= 1e-9
+    _close_values(res.values, ref.values)
 
 
 def test_gather_pcg_matches_the_scatter_pcg(sphere40):
