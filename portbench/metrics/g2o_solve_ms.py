@@ -1,0 +1,5 @@
+"""g2o_solve_ms: a pose-graph solve, from reading its .g2o file to its
+final chi2 on the host, as the window over the solves it completed (host
+clock)."""
+
+from portbench.stats import ms_per_solve as read  # noqa: F401
