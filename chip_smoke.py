@@ -1214,7 +1214,8 @@ def _ba_sqrt_run(n_poses, n_points, bucket, iters, chunk, damping,
     import torch
 
     from graph_slam_tpu_torch.datasets import make_ba_graph
-    from graph_slam_tpu_torch.graph import (build_point_obs, layout_of,
+    from graph_slam_tpu_torch.graph import (build_point_obs,
+                                            landmark_classes, layout_of,
                                             sqrt_schur_gn_step, total_error)
 
     torch.cuda.reset_peak_memory_stats()
@@ -1228,7 +1229,8 @@ def _ba_sqrt_run(n_poses, n_points, bucket, iters, chunk, damping,
     e0 = float(total_error(graph, values))
 
     step = dict(damping=damping, chunk=chunk, step_clip=step_clip,
-                assembly_precision=precision)
+                assembly_precision=precision,
+                classes=landmark_classes(graph, lay, tabs[0], tabs[1]))
 
     def solve():
         v = values

@@ -8,7 +8,7 @@ with the incremental optimizer and the fixed-lag windowed GN."""
 
 from .assemble import assemble_dense, diag_precond, gradient, hvp_fn
 from .ba_solve import (ba_gn_optimize, ba_gn_optimize_sqrt, build_point_obs,
-                       schur_gn_step, sqrt_schur_gn_step)
+                       landmark_classes, schur_gn_step, sqrt_schur_gn_step)
 from .banded import (band_halfwidth, banded_direct_gn_optimize,
                      banded_gn_optimize)
 from .batch import (gn_optimize_many, sharded_gn_many, solve_many,
@@ -41,7 +41,7 @@ __all__ = [
     "LMParams", "LMResult", "lm_optimize", "lm_optimize_g2o", "gn_optimize",
     "assemble_dense", "gradient", "hvp_fn", "diag_precond",
     "schur_gn_step", "ba_gn_optimize", "build_point_obs",
-    "sqrt_schur_gn_step", "ba_gn_optimize_sqrt",
+    "landmark_classes", "sqrt_schur_gn_step", "ba_gn_optimize_sqrt",
     "marginal_covariance_cols", "pose_marginal", "plane_marginal",
     "joint_marginal", "pose_marginals_all",
     "Incidence", "build_incidence", "gather_sum",

@@ -38,8 +38,9 @@ import numpy as np
 import torch
 
 from ..graph.assemble import dense_hg, gradient_of
-from ..graph.ba_solve import (_add_nonpoint_and_base, _backsub_points,
-                              _landmark_qr_reduce, build_point_obs)
+from ..graph.ba_solve import (_add_nonpoint_and_base, _landmark_qr_reduce,
+                              _point_updates, build_point_obs,
+                              landmark_classes)
 from ..graph.factors import FactorGraph, linearize_blocks, total_error
 from ..graph.solve import inv33, solve_dense, solve_pcg_precond
 from ..graph.variables import (VariableArena, layout_of, retract_all,
@@ -237,8 +238,9 @@ def sharded_ba_sqrt(mesh: Mesh, graph: FactorGraph, values: VariableArena,
     """Multi-device BA: the square-root Schur (``graph.ba_solve``) with the
     landmark eliminations split over the ranks. Graph and values are
     replicated (each rank gathers any projection rows of its landmarks);
-    the landmark tables are split. Per GN step: one (Dp, Dp) and one (Dp,)
-    reduction of the reduced camera system (float64, as
+    the landmark tables are split, and each rank groups its slice into
+    width classes (``landmark_classes``). Per GN step: one (Dp, Dp) and
+    one (Dp,) reduction of the reduced camera system (float64, as
     ``_landmark_qr_reduce`` sums it), the non-point terms added once, the
     replicated solve, and one (Pq, 3) reduction of the back-substituted
     landmark updates. Returns ``(values, final_error)``.
@@ -252,23 +254,23 @@ def sharded_ba_sqrt(mesh: Mesh, graph: FactorGraph, values: VariableArena,
     lay = layout_of(values)
     dev = values.pose_t.device
     Pq = lay.point_cap
-    tabs = list(build_point_obs(graph, Pq))
+    tabs = build_point_obs(graph, Pq)
     Pq_pad = Pq + (-Pq % mesh.size)
-    tabs = [np.pad(t, ((0, Pq_pad - Pq), (0, 0))) for t in tabs]
-    q_ids = torch.arange(Pq_pad, device=dev)
+    mine = [_rows(np.pad(t, ((0, Pq_pad - Pq), (0, 0))), mesh) for t in tabs]
+    classes = landmark_classes(graph, lay, mine[0], mine[1])
     obs_idx, obs_valid, prior_row, prior_valid = (
-        _rows(torch.as_tensor(t, device=dev), mesh) for t in tabs)
-    q_loc = _rows(q_ids, mesh)
+        torch.as_tensor(t, device=dev) for t in mine)
+    q_loc = _rows(torch.arange(Pq_pad, device=dev), mesh)
     for _ in range(iterations):
         (S, g), back = _landmark_qr_reduce(
             graph, values, lay, obs_idx, obs_valid, prior_row, prior_valid,
-            q_loc, damping, chunk)
+            q_loc, damping, chunk, classes=classes)
         mesh.all_reduce(S)
         mesh.all_reduce(g)
         S, g = _add_nonpoint_and_base(graph, values, lay, S, g, damping)
         dp = solve_dense(S, g, 0.0).to(values.pose_t.dtype)
         dq = torch.zeros(Pq_pad, 3, dtype=dp.dtype, device=dev)
-        dq.index_add_(0, q_loc, _backsub_points(*back, dp))
+        dq.index_add_(0, q_loc, _point_updates(back, dp, q_loc.shape[0]))
         dq = mesh.all_reduce(dq[:Pq])
         values = retract_all(values, torch.cat([dp, dq.reshape(-1)]))
     return values, total_error(graph, values)

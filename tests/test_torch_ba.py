@@ -37,6 +37,7 @@ import torch
 
 import np_lie
 import np_optimizer as npo
+from ba_tracks import MIXED, TRACKS, mix_tracks, second_prior
 from graph_slam_tpu.config import SR4000 as J_SR4000
 from graph_slam_tpu.datasets import make_ba_graph as j_make_ba_graph
 from graph_slam_tpu.graph import ba_solve as jba
@@ -339,19 +340,6 @@ def test_make_ba_graph_and_landmark_tables_match_the_reference(stress):
 _j_sqrt_step = jax.jit(jba.sqrt_schur_gn_step, static_argnames=("chunk",))
 
 
-def _second_prior(graph, values, q, make, eye):
-    """Re-anchor landmark ``q`` with a second, offset prior in the first
-    free row of the point-prior table (``TestSqrtSchur``'s edit)."""
-    pp = graph.prior_point
-    slot = int(np.asarray(pp.active).sum())
-    idx, mean = np.array(pp.idx), np.array(pp.mean)
-    S, act = np.array(pp.sqrt_info), np.array(pp.active)
-    idx[slot], mean[slot] = q, np.asarray(values.point[q]) + 0.05
-    S[slot], act[slot] = np.eye(3) * 5.0, True
-    return graph._replace(prior_point=pp._replace(
-        idx=make(idx), mean=make(mean), sqrt_info=make(S), active=make(act)))
-
-
 @pytest.fixture(scope="module")
 def two_priors():
     """``TestSqrtSchur``'s 4-pose, 30-point graph with landmark 3 carrying
@@ -359,7 +347,7 @@ def two_priors():
     gj, vj, _ = j_make_ba_graph(n_poses=4, n_points=30, obs_per_point=3,
                                 seed=2, pixel_noise=0.5, dtype=jnp.float64,
                                 bucket=8)
-    gj = _second_prior(gj, vj, 3, jnp.asarray, jnp.eye)
+    gj = second_prior(gj, vj, 3, jnp.asarray)    # TestSqrtSchur's edit
     gt, vt = _port(gj, vj)
     tabs = jba.build_point_obs(gj, j_layout_of(vj).point_cap)
     d = jnp.asarray(1e-3, jnp.float64)
@@ -421,25 +409,142 @@ def test_schur_steps_match_the_reference(sqrt80):
         _close(getattr(v_sq, f), getattr(v_ne, f), 1e-5)
 
 
+def _hold_to_one_hot(gt, vt, Sj, gj_, back_j, chunk):
+    """The Gram-form S and g against the reference's one-hot relocation,
+    and each landmark's R3, c1 and, on its own slots, E and pose columns
+    against its Householder rows (the reference pads every landmark to the
+    longest track, the port to its width class: padded slots' E is zero on
+    both sides)."""
+    tabs = _tabs(gt, vt)
+    (S, g), back = ba_solve._landmark_qr_reduce(
+        gt, vt, layout_of(vt), *tabs, torch.arange(tabs[0].shape[0]), 1e-3,
+        chunk)
+    _close(S, Sj, 1e-9, rel_to_max=True)
+    _close(g, gj_, 1e-9, rel_to_max=True)
+    R3j, Ej, c1j, cpj, livej = (np.asarray(x) for x in back_j)
+    k6 = 6 * tabs[1].sum(1).numpy()
+    seen = []
+    for rows, R3, E, c1, cols, live in back:
+        for l, q in enumerate(rows.tolist()):
+            w = k6[q]
+            _close(R3[l], R3j[q], 1e-9, rel_to_max=True)
+            _close(c1[l], c1j[q], 1e-9, rel_to_max=True)
+            if w:                       # no own slots without rows
+                _close(E[l, :, :w], Ej[q, :, :w], 1e-9, rel_to_max=True)
+            assert not E[l, :, w:].any() and not Ej[q, :, w:].any()
+            np.testing.assert_array_equal(cols[l, :w].numpy(), cpj[q, :w])
+            assert float(live[l]) == float(livej[q])
+            seen.append(q)
+    assert sorted(seen) == list(range(tabs[0].shape[0]))
+
+
 @pytest.mark.parametrize("chunk", [32, 7, 1000])
 def test_gram_form_and_kept_rows_match_the_one_hot_form(sqrt80, chunk):
     """The Gram-form S and g equal the reference's one-hot relocation, and
     R3, E, c1 its Householder rows, landmark by landmark, whatever the
     chunk."""
     gt, vt, _, _, (Sj, gj_), back_j = sqrt80
+    _hold_to_one_hot(gt, vt, Sj, gj_, back_j, chunk)
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """``ba_tracks.MIXED``: tracks of 0 to 12 rows (four width classes),
+    a landmark with two priors, dead bucket rows; both packages, and the
+    JAX package's square-root step and QR reduction on it."""
+    gj, vj, _ = j_make_ba_graph(dtype=jnp.float64, **MIXED)
+    gj = mix_tracks(gj, vj, jnp.asarray)
+    gt, vt = _port(gj, vj)
+    lay = j_layout_of(vj)
+    tabs = [jnp.asarray(t) for t in jba.build_point_obs(gj, lay.point_cap)]
+    d = jnp.asarray(1e-3, jnp.float64)
+    sq = _j_sqrt_step(gj, vj, *tabs, d, chunk=16)
+    (S, g), back = jax.jit(jba._landmark_qr_reduce, static_argnums=(2, 9))(
+        gj, vj, lay, *tabs, jnp.arange(tabs[0].shape[0]), d, 16)
+    return gj, vj, gt, vt, sq, (S, g), back
+
+
+@pytest.mark.parametrize("chunk", [5, 16, 1000])
+def test_mixed_tracks_match_the_one_hot_form(mixed, chunk):
+    """Width classes on tracks of 0 to 12 rows: S, g, the kept rows and
+    the step equal the reference's padded one-hot form, whatever the chunk
+    (5 splits every class)."""
+    _, _, gt, vt, sq, (Sj, gj_), back_j = mixed
+    _hold_to_one_hot(gt, vt, Sj, gj_, back_j, chunk)
+    v = sqrt_schur_gn_step(gt, vt, *_tabs(gt, vt), 1e-3, chunk=chunk)
+    for f in ("pose_t", "pose_R", "point"):
+        _close(getattr(v, f), getattr(sq, f), 1e-9)
+
+
+def test_mixed_tracks_converge_as_the_normal_equations(mixed):
+    gj, vj, gt, vt = mixed[:4]
+    vals_j, err_j = jba.ba_gn_optimize(gj, vj, iterations=8, damping=1e-4)
+    vals, err = ba_gn_optimize_sqrt(gt, vt, iterations=8, damping=1e-4,
+                                    chunk=16)
+    assert _rel(err, err_j) <= 1e-9
+    _close(vals.pose_t, vals_j.pose_t, 1e-7)
+    _close(vals.point, vals_j.point, 1e-7)
+
+
+@pytest.mark.parametrize("counts, classes, widths", [
+    ([0, 1, 2, 3, 4, 5, 8, 9, 16, 17, 30, 0],
+     [0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 0], [2, 4, 8, 16, 30]),
+    ([4, 0, 4, 4, 0], [0, 0, 0, 0, 0], [4]),          # one length: one class
+    ([3, 3, 0, 7, 5], [0, 0, 0, 1, 1], [3, 7]),        # own widest member
+    ([0, 0], [0, 0], [1]),
+])
+def test_width_classes_follow_the_counts_alone(counts, classes, widths):
+    cls, w = ba_solve._width_classes(np.array(counts))
+    assert cls.tolist() == classes and w == widths
+    perm = np.random.default_rng(0).permutation(len(counts))
+    cls_p, w_p = ba_solve._width_classes(np.array(counts)[perm])
+    assert cls_p.tolist() == cls[perm].tolist() and w_p == w
+
+
+def test_width_classes_scatter_only_each_landmarks_own_entries(
+        mixed, sqrt80, monkeypatch):
+    """The scatter into S takes 36 k^2 elements of each landmark with k
+    active rows, none of a padded slot; one track length is one class at
+    the reference's shapes."""
+    gt, vt = mixed[2:4]
     lay = layout_of(vt)
     tabs = _tabs(gt, vt)
-    (S, g), back = ba_solve._landmark_qr_reduce(
-        gt, vt, lay, *tabs, torch.arange(tabs[0].shape[0]), 1e-3, chunk)
-    _close(S, Sj, 1e-9, rel_to_max=True)
-    _close(g, gj_, 1e-9, rel_to_max=True)
-    for name, a, b in zip(("R3", "E", "c1", "cp_flat", "live"), back,
-                          back_j):
-        if name == "cp_flat":
-            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-        else:
-            for q in range(a.shape[0]):
-                _close(a[q], b[q], 1e-9, rel_to_max=True)
+    k = tabs[1].sum(1).numpy()
+    np.testing.assert_array_equal(k[:60], TRACKS)
+    classes = ba_solve.landmark_classes(gt, lay, tabs[0], tabs[1])
+    assert [c.width for c in classes] == [2, 4, 8, 12]
+    assert sum(c.gram_entries for c in classes) == 36 * int((k * k).sum())
+    for c in classes:
+        n, w = c.rows.shape[0], 6 * c.width
+        k6 = 6 * k[c.rows.numpy()]
+        lm, rest = divmod(c.src.numpy(), w * w)
+        i, j = divmod(rest, w)
+        np.testing.assert_array_equal(lm, np.repeat(np.arange(n), k6 * k6))
+        assert (i < k6[lm]).all() and (j < k6[lm]).all()
+        cols = c.cols.numpy()
+        np.testing.assert_array_equal(
+            c.dst.numpy(), cols[lm, i] * lay.point_off + cols[lm, j])
+    scattered = []
+    add = torch.Tensor.index_add_
+
+    def counted(self, dim, index, source, **kw):
+        if self.numel() == lay.point_off ** 2:
+            scattered.append(source.numel())
+        return add(self, dim, index, source, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", counted)
+    ba_solve._landmark_qr_reduce(gt, vt, lay, *tabs, torch.arange(64), 1e-3,
+                                 5, classes=classes)
+    assert sum(scattered) == 36 * int((k * k).sum())
+    monkeypatch.undo()
+
+    gt, vt = sqrt80[:2]
+    tabs = _tabs(gt, vt)
+    (one,) = ba_solve.landmark_classes(gt, layout_of(vt), tabs[0], tabs[1])
+    assert one.width == tabs[0].shape[1]
+    np.testing.assert_array_equal(one.rows.numpy(),
+                                  np.arange(tabs[0].shape[0]))
+    assert torch.equal(one.obs_idx, tabs[0])
 
 
 def test_bf16x3_assembly_is_three_bf16_products():

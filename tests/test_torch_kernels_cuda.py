@@ -664,6 +664,32 @@ def test_sqrt_schur_step_and_linearize_blocks_on_the_card_match_the_cpu():
                                    atol=1e-9, err_msg=f)
 
 
+def test_sqrt_schur_step_with_mixed_tracks_on_the_card_matches_the_cpu():
+    """``ba_tracks.MIXED`` (tracks of 0 to 12 rows in four width classes,
+    a landmark with two priors, dead bucket rows), float64: one
+    square-root Schur step on the card against the CPU, at a chunk that
+    splits every class."""
+    from ba_tracks import MIXED, mix_tracks
+
+    from graph_slam_tpu_torch.datasets import make_ba_graph
+    from graph_slam_tpu_torch.graph import (build_point_obs, layout_of,
+                                            sqrt_schur_gn_step)
+
+    dev = _cuda()
+    g, v, _ = make_ba_graph(dtype=torch.float64, device="cpu", **MIXED)
+    g = mix_tracks(g, v, torch.as_tensor)
+    gd, vd = _graph_to(g, dev), _graph_to(v, dev)
+    tabs = [torch.as_tensor(t) for t in build_point_obs(
+        g, layout_of(v).point_cap)]
+    cpu = sqrt_schur_gn_step(g, v, *tabs, 1e-3, chunk=5)
+    card = sqrt_schur_gn_step(gd, vd, *[t.to(dev) for t in tabs], 1e-3,
+                              chunk=5)
+    for f in ("pose_R", "pose_t", "point"):
+        np.testing.assert_allclose(getattr(card, f).cpu().numpy(),
+                                   getattr(cpu, f).numpy(), rtol=0,
+                                   atol=1e-9, err_msg=f)
+
+
 # ------------------------------------------------- the visual frontend
 def _room_frames(n, path=1000):
     """The first frames of ``chip_smoke.py``'s 640 x 480 box room."""
